@@ -25,7 +25,22 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
 7. times the step (CUDA events, after warm-up), each of its stages alone,
    and, per launch shape, the kernel alone and the wrapper's origin table
    alone (CUDA-graph replay: device time), the wrapper as the path calls
-   it, the plain twin and torch's grid_sample (a yardstick only).
+   it, the plain twin and torch's grid_sample (a yardstick only);
+8. trains full-width RIFE (weights/rife.npz, taken for training) on
+   synthetic scenes made on the card (batch 16, crop 192, detail 0.35, lr
+   2e-4, remat), through the trainer's own entry points: one recorded
+   step with both kernels' launch counts set to 0 before and read after
+   (10 warp launches: 2 for the data, 4 in the forward, 4 in its
+   recompute; 4 launches of the warp's flow-gradient kernel K2), K2 held
+   against its plain twin at every recorded launch and at synthetic cases
+   of each launch shape (constant border, flows past the radius, zero and
+   integer flows), K1 at the training's launches, the whole step's loss
+   and gradients with the kernels against the same step with both plain
+   twins, TRAIN_STEPS timed steps with finite losses (ms/step, samples/s,
+   peak memory), a save_npz/load round trip in a temporary directory, and
+   per launch shape the kernels alone (CUDA-graph replay), their bounds,
+   plain twins and torch's grid_sample (forward, and its grid gradient
+   for K2) as yardsticks.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
@@ -37,6 +52,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,6 +68,11 @@ LAUNCHES_PER_PAIR = 18
 GRAPH_LAUNCHES = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12  # non-tensor-core f32
+# the training phase: scripts/train.py's defaults for full-width RIFE
+TRAIN_BATCH, TRAIN_CROP, TRAIN_DETAIL, TRAIN_LR = 16, 192, 0.35, 2e-4
+TRAIN_STEPS = 10  # timed, after 2 warm-up steps
+K1_PER_STEP = 10  # 2 data warps + 4 IFNet warps (levels 1-3, final) + their 4 recomputes
+K2_PER_STEP = 4  # the backward of the 4 IFNet warps
 
 
 def require(ok: bool, what: str) -> None:
@@ -117,10 +138,22 @@ def launch_bound(a: dict) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def grid_sample_call(a: dict):
-    """torch's bilinear grid_sample (border padding, align_corners=True) on
-    the same warp: the library yardstick. Inputs are prepared outside the
-    returned call."""
+def grad_launch_bound(a: dict) -> tuple:
+    """(bound ms, 'bytes'|'operations') of one K2 launch: img, flow, ct and
+    t read once, grad_flow and cg written once, over HBM bandwidth; ~30
+    flops per pixel for coordinates, weights and masks plus ~20 per
+    channel, over the f32 peak."""
+    img, flow = a["img"], a["flow"]
+    n, h, w, c = img.shape
+    nbytes = (2 * img.numel() * img.element_size() + 2 * flow.numel() * flow.element_size()
+              + 4 * flow.numel() + 4 * n)
+    ops = n * h * w * (30 + 20 * c)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _grid(a: dict) -> torch.Tensor:
+    """grid_sample's normalised grid for the warp of a (align_corners=True)."""
     img, flow = a["img"], a["flow"]
     n, h, w, c = img.shape
     t = torch.as_tensor(a["t"], dtype=torch.float32, device=img.device).reshape(-1, 1, 1)
@@ -129,8 +162,28 @@ def grid_sample_call(a: dict):
     f = flow.float()
     gx = (xs + f[..., 0] * t) * (2.0 / max(w - 1, 1)) - 1.0
     gy = (ys + f[..., 1] * t) * (2.0 / max(h - 1, 1)) - 1.0
-    grid = torch.stack([gx, gy], -1).to(img.dtype)
-    inp = img.permute(0, 3, 1, 2).contiguous()
+    return torch.stack([gx, gy], -1).to(img.dtype)
+
+
+def grid_sample_grad_call(a: dict):
+    """The grid gradient of torch's grid_sample (bilinear, border,
+    align_corners=True) at the shape of a K2 launch: the library yardstick.
+    The forward is built once outside the returned call, which runs the
+    backward alone."""
+    img = a["img"].permute(0, 3, 1, 2).contiguous()
+    grid = _grid(a).requires_grad_(True)
+    out = torch.nn.functional.grid_sample(img, grid, mode="bilinear", padding_mode="border",
+                                          align_corners=True)
+    ct = a["ct"].permute(0, 3, 1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, grid, ct, retain_graph=True)
+
+
+def grid_sample_call(a: dict):
+    """torch's bilinear grid_sample (border padding, align_corners=True) on
+    the same warp: the library yardstick. Inputs are prepared outside the
+    returned call."""
+    grid = _grid(a)
+    inp = a["img"].permute(0, 3, 1, 2).contiguous()
     return lambda: torch.nn.functional.grid_sample(inp, grid, mode="bilinear",
                                                    padding_mode="border", align_corners=True)
 
@@ -196,6 +249,291 @@ def synthetic_cases(device):
         case("past_radius_bf16", (2, 272, 480, 3), bf, (2, 2), amp=25.0, noise=4.0),
         case("past_radius_f32", (1, 270, 480, 1), f32, 2, amp=25.0, noise=4.0),
     ]
+
+
+def _label(a: dict) -> str:
+    return (f"{tuple(a['img'].shape)} {str(a['img'].dtype)[6:]} window "
+            f"{str(a['compute_dtype'])[6:]} r={a['r']} {a['border']}")
+
+
+def check_warp(kw, label: str, a: dict) -> float:
+    """K1 against its plain twin on the inputs of a; returns the error."""
+    args = (a["img"], a["flow"], a["t"], a["r"], a["border"], a["compute_dtype"])
+    out = kw.warp_windowed(*args)
+    ref = kw.warp_windowed_plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = kernel_tolerance(ref, a["compute_dtype"])
+    print(f"kernel vs plain {label}: {_label(a)}: max_abs_err {err:.3e} tol {tol:.3e} "
+          f"{'ok' if err <= tol else 'FAIL'}")
+    require(err <= tol, f"kernel vs plain {label}")
+    return err
+
+
+def check_warp_grad(kw, label: str, a: dict) -> float:
+    """K2 against its plain twin on the inputs of a (grad_flow and cg),
+    within 1e-5 (f32 windows) or 2/255 (bf16) of the largest |cg|; returns
+    the error."""
+    args = (a["img"], a["flow"], a["t"], a["ct"], a["r"], a["border"], a["compute_dtype"])
+    gflow, cg = kw.warp_windowed_grad(*args)
+    ref_gflow, ref_cg = kw.warp_windowed_grad_plain(*args)
+    torch.cuda.synchronize()
+    err = max((gflow.float() - ref_gflow.float()).abs().max().item(),
+              (cg - ref_cg).abs().max().item())
+    # relative to the largest magnitude, not to max(1, it): the training's
+    # cotangents are ~1e-7, so a floor of 1 would pass anything
+    scale = ref_cg.abs().max().item()
+    tol = (2.0 / 255.0 if a["compute_dtype"] == torch.bfloat16 else 1e-5) * scale
+    require(scale > 0, f"{label} has a gradient to check")
+    print(f"grad kernel vs plain {label}: {_label(a)}: max_abs_err {err:.3e} tol {tol:.3e} "
+          f"{'ok' if err <= tol else 'FAIL'}")
+    require(err <= tol, f"grad kernel vs plain {label}")
+    return err
+
+
+def grad_cases(recorded: list) -> list:
+    """K2-vs-plain cases at each recorded launch shape: a constant border,
+    flows past the radius, zero and integer flows (random img and ct)."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    cases, seen = [], set()
+    for a in recorded:
+        key = (tuple(a["img"].shape), a["r"], a["compute_dtype"])
+        if key in seen:
+            continue
+        seen.add(key)
+        n, h, w, c = a["img"].shape
+        dev = a["img"].device
+
+        def case(name, flow, border="replicate"):
+            img = torch.rand((n, h, w, c), generator=gen).to(dev, a["img"].dtype)
+            ct = torch.randn((n, h, w, c), generator=gen).to(dev, a["img"].dtype)
+            return dict(a, name=f"{name} {key[0]}", img=img, ct=ct, border=border,
+                        flow=flow.to(dev, a["flow"].dtype))
+
+        yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                                torch.arange(w, dtype=torch.float32), indexing="ij")
+        smooth = torch.stack([torch.sin(xx / 17.0 + yy / 23.0), torch.cos(yy / 9.0)], -1)
+        cases += [
+            case("constant_border", 12.0 * smooth + 0.5 * torch.randn((n, h, w, 2), generator=gen),
+                 border="constant"),
+            case("past_radius", 25.0 * smooth + 4.0 * torch.randn((n, h, w, 2), generator=gen)),
+            case("zero_flow", torch.zeros((n, h, w, 2))),
+            case("integer_flow", torch.randint(-3, 4, (n, h, w, 2), generator=gen).float()),
+        ]
+    return cases
+
+
+def time_grad_launch(kw, a: dict) -> dict:
+    """Times of one recorded K2 launch: the kernel alone (GRAPH_LAUNCHES
+    launches captured in a CUDA graph and replayed: device time), the
+    wrapper as the backward calls it, the plain twin, grid_sample's grid
+    gradient, and the bound."""
+    img, flow, r, cd = a["img"], a["flow"], a["r"], a["compute_dtype"]
+    ry, rx = (r, r) if isinstance(r, int) else r
+    t_arr = torch.as_tensor(a["t"], dtype=torch.float32, device=img.device)
+    t_arr = t_arr.reshape(-1).expand(img.shape[0]).contiguous()
+    origin = kw.window_origins(flow, t_arr, ry, rx, cd == torch.bfloat16)
+    ct = a["ct"].contiguous()
+    gflow = torch.empty_like(flow)
+    cg = torch.empty(flow.shape, dtype=torch.float32, device=flow.device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            kw.launch_grad(img, flow, t_arr, origin, ct, gflow, cg, r, a["border"], cd)
+    args = (img, flow, a["t"], ct, r, a["border"], cd)
+    bound, by = grad_launch_bound(a)
+    return dict(kernel=time_ms(graph.replay, 5) / GRAPH_LAUNCHES, bound=bound, by=by,
+                wrapper=time_ms(lambda: kw.warp_windowed_grad(*args), 20),
+                plain=time_ms(lambda: kw.warp_windowed_grad_plain(*args), 5),
+                library=time_ms(grid_sample_grad_call(a), 20))
+
+
+def train_phase(kw, rife_npz: Path) -> dict:
+    """Step 8 of the module docstring. Returns the numbers of K2's line in
+    the kernels JSON (per train step)."""
+    from vfisr_tpu_torch.models.sota.rife import RIFEModel
+    from vfisr_tpu_torch.train.device_data import device_synthetic_batch
+    from vfisr_tpu_torch.train.train import TrainState, create_train_state, make_train_step
+    from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax, params_to_jax, save_npz
+
+    t0 = time.perf_counter()
+    # f32 activations, as RIFEConfig says: no TF32 (as the trainer CLI sets)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = RIFEModel(device="cuda")
+    model.load(weights_path=str(rife_npz))  # explicit path: strict
+    module = model.trainable()
+    require(module.config.channels == (256, 160, 112, 80) and module.config.scales == (8, 4, 2, 1),
+            "full-width RIFE")
+    state = create_train_state(module.parameters(), learning_rate=TRAIN_LR,
+                               total_steps=TRAIN_STEPS + 2)
+    step = make_train_step(module, state)  # remat on, as scripts/train.py
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def batch():
+        return device_synthetic_batch(gen, TRAIN_BATCH, TRAIN_CROP, TRAIN_DETAIL)
+
+    t0 = _phase("train_load", t0)
+
+    # one step, every launch of both kernels recorded and counted
+    real_warp, real_grad = kw.warp_windowed, kw.warp_windowed_grad
+    rec1, rec2 = [], []
+
+    def keep(t):
+        return t.clone() if torch.is_tensor(t) else t
+
+    def rec_warp(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
+        rec1.append(dict(img=img.clone(), flow=flow.clone(), t=keep(t), r=r, border=border,
+                         compute_dtype=compute_dtype))
+        return real_warp(img, flow, t, r, border, compute_dtype)
+
+    def rec_grad(img, flow, t, ct, r=8, border="replicate", compute_dtype=torch.float32):
+        rec2.append(dict(img=img.clone(), flow=flow.clone(), t=keep(t), ct=ct.contiguous().clone(),
+                         r=r, border=border, compute_dtype=compute_dtype))
+        return real_grad(img, flow, t, ct, r, border, compute_dtype)
+
+    kw.warp_windowed, kw.warp_windowed_grad = rec_warp, rec_grad
+    try:
+        kw.launches = kw.grad_launches = 0
+        loss = step(batch()).item()
+        k1, k2 = kw.launches, kw.grad_launches
+    finally:
+        kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
+    print(f"one train step (batch {TRAIN_BATCH}, crop {TRAIN_CROP}): {k1} warp launches, "
+          f"{k2} warp-gradient launches, loss {loss:.6f}")
+    require(k1 == K1_PER_STEP and len(rec1) == k1, f"{k1} warp launches in a train step")
+    require(k2 == K2_PER_STEP and len(rec2) == k2, f"{k2} warp-gradient launches in a train step")
+    require(loss == loss and abs(loss) < float("inf"), "finite loss")
+    t0 = _phase("train_record", t0)
+
+    # the kernels against their plain twins, at the step's launches
+    max_err2 = 0.0
+    for j, a in enumerate(rec2):
+        max_err2 = max(max_err2, check_warp_grad(kw, f"train-step launch {j}", a))
+    for a in grad_cases(rec2):
+        max_err2 = max(max_err2, check_warp_grad(kw, a["name"], a))
+    for j, a in enumerate(rec1):
+        check_warp(kw, f"train-step launch {j}", a)
+
+    # the whole step with the kernels against the same step with both plain
+    # twins: same batch, same params (an optimizer with lr 0 leaves them;
+    # the gradients compared are the step's, after its clip). cuDNN is
+    # made deterministic for it: its transposed convolution (the flow
+    # heads) may vary run to run, and the bf16 warp windows can turn that
+    # into large gradient differences (the kernels' own run-to-run
+    # difference is printed with default and with deterministic cuDNN)
+    fixed = batch()
+    probe = make_train_step(module, TrainState(torch.optim.AdamW(module.parameters(), lr=0.0),
+                                               lambda k: 0.0))
+
+    def loss_and_grads():
+        value = probe(fixed).item()
+        return value, {n: p.grad.clone() for n, p in module.named_parameters()}
+
+    def rel_err(a, b):
+        return max((a[n] - b[n]).abs().max().item() / max(b[n].abs().max().item(), 1e-30)
+                   for n in b)
+
+    loss_a, grads_a = loss_and_grads()
+    loss_b, grads_b = loss_and_grads()
+    print(f"train step with kernels, twice, default cuDNN: loss {loss_a:.9f} vs {loss_b:.9f}, "
+          f"gradients {rel_err(grads_a, grads_b):.3e} of each tensor's largest")
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_k, grads_k = loss_and_grads()
+        loss_k2, grads_k2 = loss_and_grads()
+        kw.warp_windowed = lambda img, flow, t=1.0, r=8, border="replicate", \
+            compute_dtype=torch.float32: kw.warp_windowed_plain(img, flow, t, r, border,
+                                                                compute_dtype)
+        kw.warp_windowed_grad = kw.warp_windowed_grad_plain
+        try:
+            loss_p, grads_p = loss_and_grads()
+        finally:
+            kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
+    finally:
+        torch.backends.cudnn.deterministic = False
+    grad_err = rel_err(grads_k, grads_p)
+    print(f"train step with kernels vs with plain twins (deterministic cuDNN): loss "
+          f"{loss_k:.9f} vs {loss_p:.9f}, gradients max error {grad_err:.3e} of each tensor's "
+          f"largest (tolerance: loss 1e-5 relative, gradients 1e-4); kernels vs kernels: loss "
+          f"{loss_k2:.9f}, gradients {rel_err(grads_k, grads_k2):.3e}")
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "train-step loss, kernels vs twins")
+    require(grad_err <= 1e-4, "train-step gradients, kernels vs twins")
+    t0 = _phase("train_checks", t0)
+
+    # the training path, counted and timed
+    step(batch())  # warm-up after the checks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    kw.launches = kw.grad_launches = 0
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(batch())
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(loss.item())
+    k1_run, k2_run = kw.launches, kw.grad_launches
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    require(k1_run == K1_PER_STEP * TRAIN_STEPS, f"{k1_run} warp launches in {TRAIN_STEPS} steps")
+    require(k2_run == K2_PER_STEP * TRAIN_STEPS,
+            f"{k2_run} warp-gradient launches in {TRAIN_STEPS} steps")
+    require(all(v == v and abs(v) < float("inf") for v in losses), "finite losses")
+    data_ms = time_ms(batch, 5)
+    ms = sum(step_ms) / len(step_ms)
+    print(f"train full-width RIFE, batch {TRAIN_BATCH}, crop {TRAIN_CROP}, remat: ms/step {ms:.3f} "
+          f"(data + step; steps: {', '.join(f'{x:.3f}' for x in step_ms)}); samples/s "
+          f"{TRAIN_BATCH * 1000.0 / ms:.2f}; data alone {data_ms:.3f} ms; max_memory_allocated "
+          f"{peak_mb:.1f} MB; losses {', '.join(f'{v:.5f}' for v in losses)}")
+    t0 = _phase("train_main", t0)
+
+    # the trained params through save_npz and back
+    trained = module.state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "rife_trained.npz"
+        save_npz(str(path), params_to_jax(trained))
+        back = params_from_jax(load_npz(str(path)))
+    require(set(back) == set(trained)
+            and all(torch.equal(back[k], trained[k].cpu()) for k in trained), "save_npz round trip")
+    shipped = params_from_jax(load_npz(str(rife_npz)))
+    require(any(not torch.equal(shipped[k], trained[k].cpu()) for k in trained),
+            "training moved the weights")
+    print(f"save_npz round trip: {len(back)} arrays equal after load")
+
+    # per launch shape: K2 then K1 at the training's shapes
+    totals = {}
+    for name, recs, timer in (("warp_windowed_grad", rec2, time_grad_launch),
+                              ("warp_windowed", rec1, time_launch)):
+        by_shape = {}
+        for a in recs:
+            key = (tuple(a["img"].shape), a["img"].dtype, a["compute_dtype"], a["r"], a["border"])
+            if key not in by_shape:
+                by_shape[key] = dict(n=0, **timer(kw, a))
+            by_shape[key]["n"] += 1
+        tot = dict(kernel=0.0, wrapper=0.0, plain=0.0, bound=0.0, library=0.0)
+        for key, v in by_shape.items():
+            print(f"train {name} shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} "
+                  f"r={key[3]} {key[4]} x{v['n']}/step: kernel {v['kernel']:.4f} ms, bound "
+                  f"{v['bound']:.4f} ms ({v['by']}), wrapper {v['wrapper']:.4f} ms, plain "
+                  f"{v['plain']:.4f} ms, grid_sample{' grad' if recs is rec2 else ''} "
+                  f"{v['library']:.4f} ms")
+            for k in tot:
+                tot[k] += v["n"] * v[k]
+        tot["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
+        totals[name] = tot
+        print(f"train {name} per step: {sum(v['n'] for v in by_shape.values())} launches, kernel "
+              f"{tot['kernel']:.4f} ms, bound {tot['bound']:.4f} ms, wrapper {tot['wrapper']:.4f} "
+              f"ms, plain {tot['plain']:.4f} ms, grid_sample {tot['library']:.4f} ms")
+    _phase("train_timing", t0)
+    g = totals["warp_windowed_grad"]
+    return {"name": "warp_windowed_grad", "route": "cuda",
+            "source": "vfisr_tpu_torch/csrc/warp_windowed.cu",
+            "replaces": "vfisr_tpu/ops/pallas/warp.py:348",
+            "launches": k2_run, "max_abs_err": max_err2, "ms": g["kernel"],
+            "plain_ms": g["plain"], "bound_ms": g["bound"], "bound_by": g["by"],
+            "library_ms": g["library"]}
 
 
 def main() -> int:
@@ -307,26 +645,10 @@ def main() -> int:
 
     # the kernel against its plain twin
     max_err = 0.0
-
-    def compare(label, a):
-        nonlocal max_err
-        args = (a["img"], a["flow"], a["t"], a["r"], a["border"], a["compute_dtype"])
-        out = kw.warp_windowed(*args)
-        ref = kw.warp_windowed_plain(*args)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = kernel_tolerance(ref, a["compute_dtype"])
-        max_err = max(max_err, err)
-        ok = err <= tol
-        print(f"kernel vs plain {label}: {tuple(a['img'].shape)} {str(a['img'].dtype)[6:]} "
-              f"window {str(a['compute_dtype'])[6:]} r={a['r']} {a['border']}: "
-              f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
-        require(ok, f"kernel vs plain {label}")
-
     for j, a in enumerate(recorded):
-        compare(f"main-path launch {j}", a)
+        max_err = max(max_err, check_warp(kw, f"main-path launch {j}", a))
     for a in synthetic_cases(dev):
-        compare(a["name"], a)
+        max_err = max(max_err, check_warp(kw, a["name"], a))
     t0 = _phase("kernel_checks", t0)
 
     # per-launch timing at the main path's shapes
@@ -375,6 +697,7 @@ def main() -> int:
           f"bound {totals['bound']:.4f} ms, origin table (device) {totals['origin']:.4f} ms, "
           f"wrapper {totals['wrapper']:.4f} ms, "
           f"plain {totals['plain']:.4f} ms, grid_sample {totals['library']:.4f} ms")
+    k2_line = train_phase(kw, rife_npz)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     print(json.dumps({"kernels": [{
         "name": "warp_windowed", "route": "cuda",
@@ -383,7 +706,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": totals["kernel"], "plain_ms": totals["plain"], "bound_ms": totals["bound"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-        "library_ms": totals["library"]}]}))
+        "library_ms": totals["library"]}, k2_line]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -72,6 +72,13 @@ def windowed_reference(backend: bool = True):
         jax.clear_caches()
 
 
+def rel_err(got, ref) -> float:
+    """Largest |got - ref| over max(1, the largest |ref|): the tests'
+    tolerance scale."""
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - ref).max() / max(1.0, np.abs(ref).max()))
+
+
 def smooth_frames(rng: np.random.Generator, n: int, h: int, w: int, c: int = 3,
                   cell: int = 8) -> np.ndarray:
     """Low-frequency random frames [n,h,w,c] in [0,1] (bilinear upsample of

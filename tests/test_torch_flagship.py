@@ -103,13 +103,15 @@ def test_history_ring_shifts():
 
 
 def test_port_imports_no_jax_cv2_or_reference():
-    """Importing every module of the port, and chip_smoke.py, pulls in no
-    jax, no cv2 and nothing of vfisr_tpu."""
+    """Importing every module of the port (the trainer, its CLI included),
+    and chip_smoke.py, pulls in no jax, no cv2 and nothing of vfisr_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vfisr_tpu_torch\n"
         "for m in pkgutil.walk_packages(vfisr_tpu_torch.__path__, 'vfisr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('train', 'train.train', 'train.device_data', 'train.__main__'):\n"
+        "    importlib.import_module('vfisr_tpu_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'vfisr_tpu', 'flax'))\n"
         "print(len([m for m in sys.modules if m.startswith('vfisr_tpu_torch')]), bad)\n"

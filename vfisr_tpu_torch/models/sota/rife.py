@@ -248,6 +248,7 @@ class RIFEModel:
     """RIFE VFI model: the IFNet with its weights on a device."""
 
     CONFIG = RIFEConfig()
+    WEIGHTS = "rife"  # weights/<WEIGHTS>.npz
 
     def __init__(self, device: str = "cuda", seed: int = 0,
                  config: Optional[RIFEConfig] = None):
@@ -264,12 +265,13 @@ class RIFEModel:
 
     def load(self, weights_path: Optional[str] = None) -> None:
         """Build the IFNet (seeded init) and load ``weights_path``, or
-        ``weights/rife.npz`` when it exists and no path is given."""
+        ``weights/<WEIGHTS>.npz`` when it exists and no path is given. The
+        module is left in inference mode, without gradients."""
         from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax
 
         auto = weights_path is None
         if auto:
-            cand = _REPO_ROOT / "weights" / "rife.npz"
+            cand = _REPO_ROOT / "weights" / f"{self.WEIGHTS}.npz"
             weights_path = str(cand) if cand.exists() else None
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
@@ -289,3 +291,17 @@ class RIFEModel:
         self.module = module.to(device=self.device, dtype=self.CONFIG.dtype).eval()
         self.module.requires_grad_(False)
 
+    def trainable(self) -> IFNet:
+        """The loaded module in training mode, every parameter requiring a
+        gradient (``load`` leaves it frozen for inference)."""
+        if self.module is None:
+            raise RuntimeError("load() the model before training it")
+        return self.module.train().requires_grad_(True)
+
+
+class RIFELiteModel(RIFEModel):
+    """The lite config (JAX ``rife.py:358,543-547``): three levels, ~4.5M
+    parameters, weights/rife_lite.npz."""
+
+    CONFIG = RIFEConfig(scales=(4, 2, 1), channels=(176, 112, 80), num_convs=8)
+    WEIGHTS = "rife_lite"

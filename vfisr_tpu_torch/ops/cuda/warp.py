@@ -1,9 +1,12 @@
 """Windowed backward warp: the CUDA port of the TPU's Pallas warp kernel.
 
-Replaces ``vfisr_tpu/ops/pallas/warp.py::warp_windowed`` in
-``weight_mode='interp'`` (the ``pl.pallas_call`` at warp.py:348). The
-kernel is ``csrc/warp_windowed.cu``: nvcc builds it into a shared library
-with a plain C interface at first use (into ``vfisr_tpu_torch/_build/``,
+Replaces ``vfisr_tpu/ops/pallas/warp.py::warp_windowed`` (the
+``pl.pallas_call`` at warp.py:348) in all three weight modes:
+``warp_windowed`` is K1 (``weight_mode='interp'``, the warp) and
+``warp_windowed_grad`` is K2 (``'grad_y'`` and ``'grad_x'``, the warp's
+flow gradient, both in one launch and reduced over channels with the
+cotangent). The kernels are ``csrc/warp_windowed.cu``: nvcc builds it into
+a shared library with a plain C interface at first use (into ``vfisr_tpu_torch/_build/``,
 keyed by a hash of the source), and ctypes loads it. No PyTorch header is
 compiled, so the build takes seconds.
 
@@ -20,9 +23,10 @@ to even, as the TPU kernel's bf16 path does.
 
 What bounds it on the H100 is bytes: see the note in the CUDA source.
 
-``warp_windowed_plain`` is the same function in plain PyTorch. The wrapper
-uses it for tensors on the CPU; on a CUDA tensor it launches the kernel or
-raises.
+``warp_windowed_plain`` (with its ``weight_mode``) and
+``warp_windowed_grad_plain`` are the same functions in plain PyTorch. The
+wrappers use them for tensors on the CPU; on a CUDA tensor they launch the
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -44,9 +48,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 TILE = (32, 256)
 
-# Kernel launches so far; a run sets it to 0 and reads it to show which
-# path it went through. Only the CUDA launch below adds to it.
+# Kernel launches so far (K1, K2); a run sets them to 0 and reads them to
+# show which path it went through. Only the CUDA launches below add to them.
 launches = 0
+grad_launches = 0
 
 _lib = None
 
@@ -58,11 +63,11 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the windowed "
-        "warp kernel is built from csrc/warp_windowed.cu at first use on the GPU")
+        "warp kernels are built from csrc/warp_windowed.cu at first use on the GPU")
 
 
 def build() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernels' library."""
     global _lib
     if _lib is not None:
         return _lib
@@ -77,10 +82,10 @@ def build() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    fn = lib.warp_windowed_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p] + [i] * 14 + [f] * 6 + [p]
-    fn.restype = ctypes.c_int
+    lib.warp_windowed_launch.argtypes = [p] * 5 + [i] * 14 + [f] * 6 + [p]
+    lib.warp_windowed_grad_launch.argtypes = [p] * 7 + [i] * 14 + [f] * 6 + [p]
+    lib.warp_windowed_launch.restype = lib.warp_windowed_grad_launch.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -176,6 +181,19 @@ def _check(img, flow, border, compute_dtype):
         raise ValueError(f"img on {img.device}, flow on {flow.device}")
 
 
+def _kernel_inputs(name: str, img: torch.Tensor, flow: torch.Tensor, t, r,
+                   compute_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t_arr, window origins) for a launch on CUDA tensors; raises on any
+    other device or on non-contiguous img or flow."""
+    if img.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {img.device}")
+    if not (img.is_contiguous() and flow.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous img and flow")
+    ry, rx = _radii(r)
+    t_arr = _t_array(t, img.shape[0], img.device)
+    return t_arr, window_origins(flow, t_arr, ry, rx, compute_dtype == torch.bfloat16)
+
+
 def warp_windowed(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
                   border: str = "replicate",
                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -189,47 +207,106 @@ def warp_windowed(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
     _check(img, flow, border, compute_dtype)
     if img.device.type == "cpu":
         return warp_windowed_plain(img, flow, t, r, border, compute_dtype)
-    if img.device.type != "cuda":
-        raise ValueError(f"warp_windowed runs on CPU or CUDA tensors, not {img.device}")
-    if not (img.is_contiguous() and flow.is_contiguous()):
-        raise ValueError("warp_windowed needs contiguous img and flow")
-    ry, rx = _radii(r)
-    t_arr = _t_array(t, img.shape[0], img.device)
-    origin = window_origins(flow, t_arr, ry, rx, compute_dtype == torch.bfloat16)
+    t_arr, origin = _kernel_inputs("warp_windowed", img, flow, t, r, compute_dtype)
     out = torch.empty_like(img)
     launch(img, flow, t_arr, origin, out, r, border, compute_dtype)
     return out
 
 
-def launch(img: torch.Tensor, flow: torch.Tensor, t_arr: torch.Tensor, origin: torch.Tensor,
-           out: torch.Tensor, r, border: str, compute_dtype: torch.dtype) -> None:
-    """Launch the kernel on checked CUDA tensors (``warp_windowed`` prepares
-    them): t_arr [N] f32, origin from ``window_origins``, out like img."""
-    global launches
+def _launch_args(img, flow, t_arr, origin, r, border, compute_dtype) -> tuple:
+    """The launch arguments K1 and K2 share, after their pointer arguments."""
     n, h, w, c = img.shape
     ry, rx = _radii(r)
     bf16 = compute_dtype == torch.bfloat16
     pt, pl, nsh_y, nsh_x, (ylo, yhi, xlo, xhi) = _geometry(h, w, ry, rx, bf16, border)
+    return (n, h, w, c, int(img.dtype == torch.bfloat16), int(flow.dtype == torch.bfloat16),
+            int(bf16), int(border == "constant"), TILE[0], TILE[1], origin.shape[1],
+            origin.shape[2], pt, pl, ylo, yhi, xlo, xhi, nsh_y - 1.001, nsh_x - 1.001)
+
+
+def launch(img: torch.Tensor, flow: torch.Tensor, t_arr: torch.Tensor, origin: torch.Tensor,
+           out: torch.Tensor, r, border: str, compute_dtype: torch.dtype) -> None:
+    """Launch K1 on checked CUDA tensors (``warp_windowed`` prepares
+    them): t_arr [N] f32, origin from ``window_origins``, out like img."""
+    global launches
     lib = build()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.warp_windowed_launch(
-            img.data_ptr(), flow.data_ptr(), t_arr.data_ptr(), origin.data_ptr(),
-            out.data_ptr(), n, h, w, c, int(img.dtype == torch.bfloat16),
-            int(flow.dtype == torch.bfloat16), int(bf16), int(border == "constant"),
-            TILE[0], TILE[1], origin.shape[1], origin.shape[2], pt, pl,
-            ylo, yhi, xlo, xhi, nsh_y - 1.001, nsh_x - 1.001, stream)
+            img.data_ptr(), flow.data_ptr(), t_arr.data_ptr(), origin.data_ptr(), out.data_ptr(),
+            *_launch_args(img, flow, t_arr, origin, r, border, compute_dtype), stream)
     if err != 0:
         raise RuntimeError(f"warp_windowed kernel launch failed: cudaError {err}")
     launches += 1
 
 
+def warp_windowed_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor, r=8,
+                       border: str = "replicate",
+                       compute_dtype: torch.dtype = torch.float32
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flow gradient of ``warp_windowed`` (K2): ``(grad_flow, cg)``.
+
+    ct is the cotangent of the warp's output (img's shape and dtype). cg
+    [N,H,W,2] f32 is (d loss/d sx, d loss/d sy), the channel sums of ct
+    times the Pallas kernel's 'grad_x' and 'grad_y' outputs; grad_flow =
+    cg * t in flow's dtype. The window origins are those of the forward
+    and constant. CPU tensors go to ``warp_windowed_grad_plain``; CUDA
+    tensors to the kernel.
+    """
+    _check(img, flow, border, compute_dtype)
+    if ct.shape != img.shape or ct.dtype != img.dtype or ct.device != img.device:
+        raise ValueError(f"ct must be like img {tuple(img.shape)} {img.dtype}; got "
+                         f"{tuple(ct.shape)} {ct.dtype} on {ct.device}")
+    if img.device.type == "cpu":
+        return warp_windowed_grad_plain(img, flow, t, ct, r, border, compute_dtype)
+    t_arr, origin = _kernel_inputs("warp_windowed_grad", img, flow, t, r, compute_dtype)
+    grad_flow = torch.empty_like(flow)
+    cg = torch.empty(flow.shape, dtype=torch.float32, device=flow.device)
+    # autograd hands back cotangents of permuted outputs (rife.py's NCHW
+    # views): the kernel reads ct as [N,H,W,C] contiguous
+    launch_grad(img, flow, t_arr, origin, ct.contiguous(), grad_flow, cg, r, border,
+                compute_dtype)
+    return grad_flow, cg
+
+
+def launch_grad(img: torch.Tensor, flow: torch.Tensor, t_arr: torch.Tensor,
+                origin: torch.Tensor, ct: torch.Tensor, grad_flow: torch.Tensor,
+                cg: torch.Tensor, r, border: str, compute_dtype: torch.dtype) -> None:
+    """Launch K2 on checked CUDA tensors (``warp_windowed_grad`` prepares
+    them): ct contiguous like img, grad_flow like flow, cg [N,H,W,2] f32."""
+    global grad_launches
+    lib = build()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.warp_windowed_grad_launch(
+            img.data_ptr(), flow.data_ptr(), t_arr.data_ptr(), origin.data_ptr(), ct.data_ptr(),
+            grad_flow.data_ptr(), cg.data_ptr(),
+            *_launch_args(img, flow, t_arr, origin, r, border, compute_dtype), stream)
+    if err != 0:
+        raise RuntimeError(f"warp_windowed_grad kernel launch failed: cudaError {err}")
+    grad_launches += 1
+
+
+WEIGHT_MODES = ("interp", "grad_y", "grad_x")
+
+
 def warp_windowed_plain(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
                         border: str = "replicate",
-                        compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                        compute_dtype: torch.dtype = torch.float32,
+                        weight_mode: str = "interp") -> torch.Tensor:
     """``warp_windowed`` in plain PyTorch: the same taps, weights and
-    rounding steps as the kernel, as whole-tensor ops on any device."""
+    rounding steps as the kernel, as whole-tensor ops on any device.
+
+    weight_mode (as the Pallas kernel's): 'interp' is the warp; 'grad_y'
+    and 'grad_x' return d out/d sy and d out/d sx per pixel and channel,
+    that axis' hat replaced by its floor-consistent derivative (-1 at the
+    lower tap, +1 at the upper) and masked to 0 where the forward
+    saturates: the source coordinate outside [lo, hi) or the residual
+    outside [0, nsh-1.001). Returns img's dtype.
+    """
     _check(img, flow, border, compute_dtype)
+    if weight_mode not in WEIGHT_MODES:
+        raise ValueError(f"weight_mode must be one of {WEIGHT_MODES}; got {weight_mode!r}")
     n, h, w, c = img.shape
     ry, rx = _radii(r)
     bf16 = compute_dtype == torch.bfloat16
@@ -248,16 +325,28 @@ def warp_windowed_plain(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
     # kernel's fmaf; XLA contracts the reference's expression the same way)
     f = flow.double()
     tb = t_arr.double()[:, None, None]
-    sy = ((pt + ys).double()[None, :, None] + f[..., 1] * tb).float().clamp(ylo, yhi)
-    sx = ((pl + xs).double()[None, None, :] + f[..., 0] * tb).float().clamp(xlo, xhi)
-    ryf = ((sy - oy.float()) - rows.float()).clamp(0.0, nsh_y - 1.001)
-    rxf = ((sx - ox.float()) - cols.float()).clamp(0.0, nsh_x - 1.001)
+    sy_raw = ((pt + ys).double()[None, :, None] + f[..., 1] * tb).float()
+    sx_raw = ((pl + xs).double()[None, None, :] + f[..., 0] * tb).float()
+    ry_raw = (sy_raw.clamp(ylo, yhi) - oy.float()) - rows.float()
+    rx_raw = (sx_raw.clamp(xlo, xhi) - ox.float()) - cols.float()
+    # the residual bound nsh-1.001 rounded to f32, as the reference's and
+    # the kernel's clamps and validity masks take it
+    ry_max, rx_max = (torch.tensor(nsh - 1.001, dtype=torch.float32).item()
+                      for nsh in (nsh_y, nsh_x))
+    ryf = ry_raw.clamp(0.0, ry_max)
+    rxf = rx_raw.clamp(0.0, rx_max)
     a0 = torch.floor(ryf)
     b0 = torch.floor(rxf)
     wy0 = 1.0 - (ryf - a0)
     wy1 = 1.0 - ((a0 + 1.0) - ryf)
     wx0 = 1.0 - (rxf - b0)
     wx1 = 1.0 - ((b0 + 1.0) - rxf)
+    if weight_mode == "grad_y":
+        vy = ((sy_raw >= ylo) & (sy_raw < yhi) & (ry_raw >= 0.0) & (ry_raw < ry_max)).float()
+        wy0, wy1 = -vy, vy
+    elif weight_mode == "grad_x":
+        vx = ((sx_raw >= xlo) & (sx_raw < xhi) & (rx_raw >= 0.0) & (rx_raw < rx_max)).float()
+        wx0, wx1 = -vx, vx
     yi0 = oy + rows + a0.long() - pt
     xi0 = ox + cols + b0.long() - pl
 
@@ -276,3 +365,18 @@ def warp_windowed_plain(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
     inner = [(wx0c * tap(yi0 + a, xi0) + wx1c * tap(yi0 + a, xi0 + 1)).float() for a in (0, 1)]
     out = wy0[..., None] * inner[0] + wy1[..., None] * inner[1]
     return out.to(img.dtype)
+
+
+def warp_windowed_grad_plain(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor, r=8,
+                             border: str = "replicate",
+                             compute_dtype: torch.dtype = torch.float32
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``warp_windowed_grad`` in plain PyTorch, on the grad weight modes:
+    the two per-channel derivatives, each times ct and summed over
+    channels in f32, then scaled by t."""
+    gx, gy = (warp_windowed_plain(img, flow, t, r, border, compute_dtype, mode)
+              for mode in ("grad_x", "grad_y"))
+    ctf = ct.float()
+    cg = torch.stack([(ctf * gx.float()).sum(-1), (ctf * gy.float()).sum(-1)], -1)
+    t_arr = _t_array(t, img.shape[0], img.device)
+    return (cg * t_arr[:, None, None, None]).to(flow.dtype), cg
