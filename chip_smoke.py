@@ -6,13 +6,15 @@ Needs a CUDA card, nvcc (CUDA_HOME or PATH) and the repository's
 vfisr_tpu_torch/ and weights/ beside this file; no network. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the windowed-warp kernel (csrc/warp_windowed.cu) with nvcc;
+2. builds the windowed-warp kernels (csrc/warp_windowed.cu) with nvcc;
 3. loads FlagshipVFI(device="cuda") with weights/rife.npz (full-width RIFE,
    bf16 deploy config) and weights/router_gate.json;
 4. drives the flagship fused step (fused_stream_step) over a stream of
    synthetic 1920x1080 gameplay frames (gradient, moving textured
    rectangle, static HUD box) to 2560x1440 uint8, with the kernel's launch
-   count set to 0 before and read after (18 launches per pair);
+   count set to 0 before and read after (18 launches per pair), and with
+   the wrapper's torch-op origin table (``window_origins``) swapped for a
+   function that raises: the kernels compute their origins themselves;
 5. checks the outputs: shapes and dtypes, the endpoint frame against its
    own upscale, the midpoints beating frame duplication against the
    synthetic scene's true in-between frames, and one pair against the same
@@ -21,26 +23,34 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    main path (the inputs recorded as the path made them) and at synthetic
    cases of each launch shape, a constant border and a flow that leaves
    the window (tolerance 1e-5 in f32 windows, 2/255 in bf16 windows, both
-   relative to the largest magnitude when it exceeds 1);
+   relative to the largest magnitude when it exceeds 1); holds the window
+   origins the kernels compute (``kernel_origins``) equal to
+   ``window_origins`` at each of those launches; and holds origins, K1 and
+   K2 at the origin's edge cases (tile means on .5 after scaling by t,
+   +-300 px flows, 1080 and 270 rows, a t per image, odd bf16 row origins,
+   the constant border);
 7. times the step (CUDA events, after warm-up), each of its stages alone,
-   and, per launch shape, the kernel alone and the wrapper's origin table
-   alone (CUDA-graph replay: device time), the wrapper as the path calls
-   it, the plain twin and torch's grid_sample (a yardstick only);
+   and, per launch shape, the kernel alone with its origin (CUDA-graph
+   replay: device time), the wrapper's host time per call (enqueue, no
+   synchronisation), the wrapper as the path calls it (CUDA events), the
+   plain twin and torch's grid_sample (a yardstick only);
 8. trains full-width RIFE (weights/rife.npz, taken for training) on
    synthetic scenes made on the card (batch 16, crop 192, detail 0.35, lr
    2e-4, remat), through the trainer's own entry points: one recorded
    step with both kernels' launch counts set to 0 before and read after
    (10 warp launches: 2 for the data, 4 in the forward, 4 in its
-   recompute; 4 launches of the warp's flow-gradient kernel K2), K2 held
+   recompute; 4 launches of the warp's flow-gradient kernel K2) and
+   ``window_origins`` raising, the kernels' origins held equal to it at
+   all 14 launches, K2 held
    against its plain twin at every recorded launch and at synthetic cases
    of each launch shape (constant border, flows past the radius, zero and
    integer flows), K1 at the training's launches, the whole step's loss
    and gradients with the kernels against the same step with both plain
    twins, TRAIN_STEPS timed steps with finite losses (ms/step, samples/s,
    peak memory), a save_npz/load round trip in a temporary directory, and
-   per launch shape the kernels alone (CUDA-graph replay), their bounds,
-   plain twins and torch's grid_sample (forward, and its grid gradient
-   for K2) as yardsticks.
+   per launch shape the kernels alone (CUDA-graph replay), the wrappers'
+   host time, their bounds, plain twins and torch's grid_sample (forward,
+   and its grid gradient for K2) as yardsticks.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
@@ -48,6 +58,7 @@ Any failure raises and the exit code is not 0. The line before the last is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -73,6 +84,7 @@ TRAIN_BATCH, TRAIN_CROP, TRAIN_DETAIL, TRAIN_LR = 16, 192, 0.35, 2e-4
 TRAIN_STEPS = 10  # timed, after 2 warm-up steps
 K1_PER_STEP = 10  # 2 data warps + 4 IFNet warps (levels 1-3, final) + their 4 recomputes
 K2_PER_STEP = 4  # the backward of the 4 IFNet warps
+ORIGIN_TABLE = None  # ops.cuda.warp.window_origins, once main() has imported it
 
 
 def require(ok: bool, what: str) -> None:
@@ -188,31 +200,35 @@ def grid_sample_call(a: dict):
                                                    padding_mode="border", align_corners=True)
 
 
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time of one call of fn (what the caller's thread spends to
+    enqueue it; no synchronisation inside the timed loop), after warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def time_launch(kw, a: dict) -> dict:
-    """Times of one recorded launch: the kernel alone and the wrapper's
-    origin table alone (GRAPH_LAUNCHES calls of each captured in a CUDA
-    graph and replayed, so device time without host overhead), the wrapper
-    as the main path calls it (origin table + launch), the plain twin,
-    grid_sample, and the bound."""
+    """Times of one recorded launch: the kernel alone, its origin included
+    (GRAPH_LAUNCHES launches captured in a CUDA graph and replayed, so
+    device time without host overhead), the wrapper's host time per call
+    and the wrapper as the main path calls it (CUDA events), the plain
+    twin, grid_sample, and the bound."""
     img, flow, r, cd = a["img"], a["flow"], a["r"], a["compute_dtype"]
-    ry, rx = (r, r) if isinstance(r, int) else r
-    t_arr = torch.as_tensor(a["t"], dtype=torch.float32, device=img.device)
-    t_arr = t_arr.reshape(-1).expand(img.shape[0]).contiguous()
-    bf16 = cd == torch.bfloat16
-    origin = kw.window_origins(flow, t_arr, ry, rx, bf16)
     out = torch.empty_like(img)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(GRAPH_LAUNCHES):
-            kw.launch(img, flow, t_arr, origin, out, r, a["border"], cd)
-    origin_graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(origin_graph):
-        for _ in range(GRAPH_LAUNCHES):
-            kw.window_origins(flow, t_arr, ry, rx, bf16)
+            kw.launch(img, flow, a["t"], out, r, a["border"], cd)
     args = (img, flow, a["t"], r, a["border"], cd)
     bound, by = launch_bound(a)
     return dict(kernel=time_ms(graph.replay, 5) / GRAPH_LAUNCHES, bound=bound, by=by,
-                origin=time_ms(origin_graph.replay, 5) / GRAPH_LAUNCHES,
+                host=host_ms(lambda: kw.warp_windowed(*args)),
                 wrapper=time_ms(lambda: kw.warp_windowed(*args), 20),
                 plain=time_ms(lambda: kw.warp_windowed_plain(*args), 5),
                 library=time_ms(grid_sample_call(a), 20))
@@ -249,6 +265,87 @@ def synthetic_cases(device):
         case("past_radius_bf16", (2, 272, 480, 3), bf, (2, 2), amp=25.0, noise=4.0),
         case("past_radius_f32", (1, 270, 480, 1), f32, 2, amp=25.0, noise=4.0),
     ]
+
+
+def adversarial_cases(device) -> list:
+    """The window origin's edge cases, at shapes of the path's launches:
+    tile means that land exactly on .5 after scaling by t (t = 0.5, odd
+    integer tile flows plus a zero-sum +-6 checkerboard), uniform +-300 px
+    flows (the order of the f32 sums decides the mean's last bits), 1080
+    and 270 rows (edge-padded tiles), a t per image, integer tile flows
+    that give odd row origins before bf16 rounds them to even, and the
+    constant border. Each carries a random cotangent for K2."""
+    gen = torch.Generator(device="cpu").manual_seed(2)
+
+    def case(name, kind, shape, img_dt, window_dt, r, border="replicate"):
+        n, h, w, c = shape
+        yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        ty, tx = yy // 32, xx // 256
+        t = 1.0
+        if kind == "tie":
+            t = 0.5
+            k = torch.randint(-4, 5, (n, 2, 1, 1), generator=gen) + torch.stack(
+                [3 * ty - tx, tx - 2 * ty])
+            flow = (2 * k + 1) + torch.where(yy % 2 == xx % 2, 6, -6)
+        elif kind == "large":
+            flow = torch.rand((n, 2, h, w), generator=gen) * 600.0 - 300.0
+        elif kind == "odd_row":
+            k = torch.randint(0, 6, (n, 2, 1, 1), generator=gen) + torch.stack([tx + ty, ty])
+            flow = k + 0.2 * torch.randn((n, 2, h, w), generator=gen)
+        else:  # smooth, with ragged shapes and a t per image
+            flow = torch.stack([6.0 * torch.sin(xx / 17.0 + yy / 23.0),
+                                3.0 * torch.cos(yy / 9.0) - 0.5])[None]
+            flow = flow + torch.randn((n, 2, h, w), generator=gen)
+            if kind == "per_batch_t":
+                t = torch.linspace(0.3, 1.7, n, device=device)
+        flow = flow.permute(0, 2, 3, 1).float().contiguous()
+        return dict(name=name, img=torch.rand(shape, generator=gen).to(device, img_dt),
+                    ct=torch.randn(shape, generator=gen).to(device, img_dt),
+                    flow=flow.to(device, img_dt), t=t, r=r, border=border,
+                    compute_dtype=window_dt)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        case("tie_final", "tie", (2, 1088, 1920, 3), bf, bf, (3, 4)),
+        case("tie_level", "tie", (32, 96, 96, 3), f32, bf, (2, 4)),
+        case("large_farneback", "large", (1, 270, 480, 5), f32, f32, 8),
+        case("large_train_final", "large", (32, 192, 192, 3), f32, bf, (4, 6)),
+        case("ragged_1080", "ragged", (2, 1080, 1920, 3), bf, bf, (3, 4)),
+        case("ragged_270_constant", "ragged", (1, 270, 480, 1), f32, f32, 8, "constant"),
+        case("per_batch_t_level", "per_batch_t", (32, 48, 48, 3), f32, bf, (2, 4)),
+        case("per_batch_t_data", "per_batch_t", (48, 192, 192, 4), f32, f32, 2, "constant"),
+        case("odd_row_s2", "odd_row", (2, 544, 960, 3), bf, bf, (2, 2)),
+        case("odd_row_constant", "odd_row", (2, 272, 480, 3), bf, bf, (2, 2), "constant"),
+    ]
+
+
+def check_origins(kw, label: str, a: dict) -> None:
+    """The window origins the kernels compute equal window_origins', int
+    for int (the output alone can hide an origin one pixel off)."""
+    flow, r, cd = a["flow"], a["r"], a["compute_dtype"]
+    ry, rx = (r, r) if isinstance(r, int) else r
+    t_arr = torch.as_tensor(a["t"], dtype=torch.float32, device=flow.device)
+    t_arr = t_arr.reshape(-1).expand(flow.shape[0]).contiguous()
+    got = kw.kernel_origins(flow, a["t"], r, cd)
+    ref = ORIGIN_TABLE(flow, t_arr, ry, rx, cd == torch.bfloat16)
+    same = got.shape == ref.shape and torch.equal(got, ref)
+    print(f"origins kernel vs window_origins {label}: {tuple(ref.shape[:3])} tiles "
+          f"{'equal' if same else 'DIFFER'}")
+    require(same, f"kernel origins vs window_origins {label}")
+
+
+@contextlib.contextmanager
+def origin_table_raises(kw):
+    """Swaps the wrapper module's window_origins for a function that
+    raises: a run inside shows that the kernels' path never reaches it."""
+    def raising(*args, **kwargs):
+        raise RuntimeError("window_origins reached on the kernels' path")
+
+    kw.window_origins = raising
+    try:
+        yield
+    finally:
+        kw.window_origins = ORIGIN_TABLE
 
 
 def _label(a: dict) -> str:
@@ -324,25 +421,23 @@ def grad_cases(recorded: list) -> list:
 
 
 def time_grad_launch(kw, a: dict) -> dict:
-    """Times of one recorded K2 launch: the kernel alone (GRAPH_LAUNCHES
-    launches captured in a CUDA graph and replayed: device time), the
+    """Times of one recorded K2 launch: the kernel alone, its origin
+    included (GRAPH_LAUNCHES launches captured in a CUDA graph and
+    replayed: device time), the wrapper's host time per call and the
     wrapper as the backward calls it, the plain twin, grid_sample's grid
     gradient, and the bound."""
     img, flow, r, cd = a["img"], a["flow"], a["r"], a["compute_dtype"]
-    ry, rx = (r, r) if isinstance(r, int) else r
-    t_arr = torch.as_tensor(a["t"], dtype=torch.float32, device=img.device)
-    t_arr = t_arr.reshape(-1).expand(img.shape[0]).contiguous()
-    origin = kw.window_origins(flow, t_arr, ry, rx, cd == torch.bfloat16)
     ct = a["ct"].contiguous()
     gflow = torch.empty_like(flow)
     cg = torch.empty(flow.shape, dtype=torch.float32, device=flow.device)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(GRAPH_LAUNCHES):
-            kw.launch_grad(img, flow, t_arr, origin, ct, gflow, cg, r, a["border"], cd)
+            kw.launch_grad(img, flow, a["t"], ct, gflow, cg, r, a["border"], cd)
     args = (img, flow, a["t"], ct, r, a["border"], cd)
     bound, by = grad_launch_bound(a)
     return dict(kernel=time_ms(graph.replay, 5) / GRAPH_LAUNCHES, bound=bound, by=by,
+                host=host_ms(lambda: kw.warp_windowed_grad(*args)),
                 wrapper=time_ms(lambda: kw.warp_windowed_grad(*args), 20),
                 plain=time_ms(lambda: kw.warp_windowed_grad_plain(*args), 5),
                 library=time_ms(grid_sample_grad_call(a), 20))
@@ -394,9 +489,10 @@ def train_phase(kw, rife_npz: Path) -> dict:
 
     kw.warp_windowed, kw.warp_windowed_grad = rec_warp, rec_grad
     try:
-        kw.launches = kw.grad_launches = 0
-        loss = step(batch()).item()
-        k1, k2 = kw.launches, kw.grad_launches
+        with origin_table_raises(kw):
+            kw.launches = kw.grad_launches = 0
+            loss = step(batch()).item()
+            k1, k2 = kw.launches, kw.grad_launches
     finally:
         kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
     print(f"one train step (batch {TRAIN_BATCH}, crop {TRAIN_CROP}): {k1} warp launches, "
@@ -406,7 +502,10 @@ def train_phase(kw, rife_npz: Path) -> dict:
     require(loss == loss and abs(loss) < float("inf"), "finite loss")
     t0 = _phase("train_record", t0)
 
-    # the kernels against their plain twins, at the step's launches
+    # the kernels' origins, and the kernels against their plain twins, at
+    # the step's launches
+    for j, a in enumerate(rec1 + rec2):
+        check_origins(kw, f"train-step launch {j}", a)
     max_err2 = 0.0
     for j, a in enumerate(rec2):
         max_err2 = max(max_err2, check_warp_grad(kw, f"train-step launch {j}", a))
@@ -466,16 +565,18 @@ def train_phase(kw, rife_npz: Path) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
-    kw.launches = kw.grad_launches = 0
-    for _ in range(TRAIN_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = step(batch())
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        losses.append(loss.item())
-    k1_run, k2_run = kw.launches, kw.grad_launches
+    with origin_table_raises(kw):
+        kw.launches = kw.grad_launches = 0
+        for _ in range(TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(batch())
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(loss.item())
+        k1_run, k2_run = kw.launches, kw.grad_launches
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     require(k1_run == K1_PER_STEP * TRAIN_STEPS, f"{k1_run} warp launches in {TRAIN_STEPS} steps")
     require(k2_run == K2_PER_STEP * TRAIN_STEPS,
@@ -512,11 +613,12 @@ def train_phase(kw, rife_npz: Path) -> dict:
             if key not in by_shape:
                 by_shape[key] = dict(n=0, **timer(kw, a))
             by_shape[key]["n"] += 1
-        tot = dict(kernel=0.0, wrapper=0.0, plain=0.0, bound=0.0, library=0.0)
+        tot = dict(kernel=0.0, host=0.0, wrapper=0.0, plain=0.0, bound=0.0, library=0.0)
         for key, v in by_shape.items():
             print(f"train {name} shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} "
                   f"r={key[3]} {key[4]} x{v['n']}/step: kernel {v['kernel']:.4f} ms, bound "
-                  f"{v['bound']:.4f} ms ({v['by']}), wrapper {v['wrapper']:.4f} ms, plain "
+                  f"{v['bound']:.4f} ms ({v['by']}), wrapper host {v['host']:.4f} ms, "
+                  f"wrapper {v['wrapper']:.4f} ms, plain "
                   f"{v['plain']:.4f} ms, grid_sample{' grad' if recs is rec2 else ''} "
                   f"{v['library']:.4f} ms")
             for k in tot:
@@ -524,8 +626,9 @@ def train_phase(kw, rife_npz: Path) -> dict:
         tot["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
         totals[name] = tot
         print(f"train {name} per step: {sum(v['n'] for v in by_shape.values())} launches, kernel "
-              f"{tot['kernel']:.4f} ms, bound {tot['bound']:.4f} ms, wrapper {tot['wrapper']:.4f} "
-              f"ms, plain {tot['plain']:.4f} ms, grid_sample {tot['library']:.4f} ms")
+              f"{tot['kernel']:.4f} ms, bound {tot['bound']:.4f} ms, wrapper host "
+              f"{tot['host']:.4f} ms, wrapper {tot['wrapper']:.4f} ms, plain {tot['plain']:.4f} "
+              f"ms, grid_sample {tot['library']:.4f} ms")
     _phase("train_timing", t0)
     g = totals["warp_windowed_grad"]
     return {"name": "warp_windowed_grad", "route": "cuda",
@@ -551,6 +654,9 @@ def main() -> int:
     from vfisr_tpu_torch.ops.cuda import warp as kw
     from vfisr_tpu_torch.pipeline.flagship import (FlagshipVFI, analyze_small, init_history,
                                                    push_history)
+
+    global ORIGIN_TABLE
+    ORIGIN_TABLE = kw.window_origins
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -586,8 +692,9 @@ def main() -> int:
 
     kw.warp_windowed = recording
     try:
-        vfi.fused_stream_step(frames[0], frames[1], SCALE, TS)
-        torch.cuda.synchronize()
+        with origin_table_raises(kw):
+            vfi.fused_stream_step(frames[0], frames[1], SCALE, TS)
+            torch.cuda.synchronize()
     finally:
         kw.warp_windowed = real_warp
     require(len(recorded) == LAUNCHES_PER_PAIR, f"{len(recorded)} warp launches in a pair")
@@ -597,15 +704,17 @@ def main() -> int:
     vfi.reset_history()
     torch.cuda.reset_peak_memory_stats()
     outs, pair_ms = [], []
-    kw.launches = 0
-    for i in range(PAIRS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        outs.append(vfi.fused_stream_step(frames[i], frames[i + 1], SCALE, TS))
-        end.record()
-        end.synchronize()
-        pair_ms.append(start.elapsed_time(end))
-    launches = kw.launches
+    with origin_table_raises(kw):
+        kw.launches = 0
+        for i in range(PAIRS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs.append(vfi.fused_stream_step(frames[i], frames[i + 1], SCALE, TS))
+            end.record()
+            end.synchronize()
+            pair_ms.append(start.elapsed_time(end))
+        launches = kw.launches
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     require(launches == LAUNCHES_PER_PAIR * PAIRS, f"{launches} kernel launches in {PAIRS} pairs")
     t0 = _phase("main_path", t0)
@@ -643,16 +752,24 @@ def main() -> int:
     require(d.max().item() <= 2 and d.float().mean().item() <= 0.05, "kernel vs twin in the step")
     t0 = _phase("outputs", t0)
 
-    # the kernel against its plain twin
+    # the kernels' origins, and the kernel against its plain twin
     max_err = 0.0
     for j, a in enumerate(recorded):
+        check_origins(kw, f"main-path launch {j}", a)
         max_err = max(max_err, check_warp(kw, f"main-path launch {j}", a))
     for a in synthetic_cases(dev):
+        check_origins(kw, a["name"], a)
         max_err = max(max_err, check_warp(kw, a["name"], a))
+    # the origin's edge cases: origins, K1 and K2 (K2's line takes its
+    # max_abs_err from the training's launches; these only gate)
+    for a in adversarial_cases(dev):
+        check_origins(kw, a["name"], a)
+        max_err = max(max_err, check_warp(kw, a["name"], a))
+        check_warp_grad(kw, a["name"], a)
     t0 = _phase("kernel_checks", t0)
 
     # per-launch timing at the main path's shapes
-    totals = dict(kernel=0.0, origin=0.0, wrapper=0.0, plain=0.0, bound=0.0, library=0.0)
+    totals = dict(kernel=0.0, host=0.0, wrapper=0.0, plain=0.0, bound=0.0, library=0.0)
     by_shape = {}
     for a in recorded:
         key = (tuple(a["img"].shape), a["img"].dtype, a["compute_dtype"], a["r"], a["border"])
@@ -662,7 +779,8 @@ def main() -> int:
     for key, s in by_shape.items():
         print(f"launch shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} r={key[3]} x{s['n']}/pair: "
               f"kernel {s['kernel']:.4f} ms, bound {s['bound']:.4f} ms ({s['by']}), "
-              f"origin table {s['origin']:.4f} ms, wrapper {s['wrapper']:.4f} ms, plain {s['plain']:.4f} ms, grid_sample {s['library']:.4f} ms")
+              f"wrapper host {s['host']:.4f} ms, wrapper {s['wrapper']:.4f} ms, "
+              f"plain {s['plain']:.4f} ms, grid_sample {s['library']:.4f} ms")
         for k in totals:
             totals[k] += s["n"] * s[k]
     bound_by = {s["by"] for s in by_shape.values()}
@@ -694,7 +812,7 @@ def main() -> int:
           f"{len(TS) * 1000.0 / ms:.2f}; output fps {(1 + len(TS)) * 1000.0 / ms:.2f}; "
           f"max_memory_allocated {peak_mb:.1f} MB")
     print(f"warp kernel per pair: {LAUNCHES_PER_PAIR} launches, kernel {totals['kernel']:.4f} ms, "
-          f"bound {totals['bound']:.4f} ms, origin table (device) {totals['origin']:.4f} ms, "
+          f"bound {totals['bound']:.4f} ms, wrapper host {totals['host']:.4f} ms, "
           f"wrapper {totals['wrapper']:.4f} ms, "
           f"plain {totals['plain']:.4f} ms, grid_sample {totals['library']:.4f} ms")
     k2_line = train_phase(kw, rife_npz)

@@ -126,3 +126,37 @@ def game_frames(n: int, h: int, w: int, step: float = 3.0) -> np.ndarray:
         f[: h // 6, : w // 5] = (0.9, 0.9, 0.1)  # HUD
         out[i] = f
     return np.clip(np.floor(out * 255.0 + 0.5), 0, 255).astype(np.uint8)
+
+
+def adversarial_flow(kind: str, rng: np.random.Generator, n: int, h: int, w: int):
+    """(flow [n,h,w,2] f32, t) for one edge case of the window origin.
+
+    tie: every tile mean times t lands exactly on .5 (t = 0.5, odd integer
+    tile flows, and a zero-sum checkerboard of +-6 whose pixels sit past
+    the radius under one rounding of the tie and inside it under the
+    other); large: uniform flows of +-300 px, where the order of the f32
+    sums decides the last bits of the mean; ragged: a smooth flow;
+    per_batch_t: a smooth flow and a t per image; odd_row: integer tile
+    flows (plus noise) whose row origin is odd before bf16 rounds it
+    down to even.
+    """
+    yy, xx = np.mgrid[0:h, 0:w]
+    ty, tx = yy // 32, xx // 256
+    if kind == "tie":
+        t = 0.5
+        k = rng.integers(-4, 5, (n, 2, 1, 1)) + np.stack([3 * ty - tx, tx - 2 * ty])[None]
+        check = np.where((yy % 2) == (xx % 2), 6.0, -6.0)
+        flow = (2 * k + 1) + check[None, None]  # (k + 0.5) / t, +-6
+        return np.ascontiguousarray(np.moveaxis(flow, 1, -1), np.float32), t
+    if kind == "large":
+        return rng.uniform(-300.0, 300.0, (n, h, w, 2)).astype(np.float32), 1.0
+    if kind == "odd_row":
+        k = rng.integers(0, 6, (n, 2, 1, 1)) + np.stack([tx + ty, ty])[None]
+        flow = k + rng.normal(0.0, 0.2, (n, 2, h, w))
+        return np.ascontiguousarray(np.moveaxis(flow, 1, -1), np.float32), 1.0
+    flow = smooth_flow(rng, n, h, w, 6.0, 1.0)
+    if kind == "per_batch_t":
+        return flow, np.linspace(0.3, 1.7, n).astype(np.float32)
+    if kind == "ragged":
+        return flow, 1.0
+    raise ValueError(f"unknown adversarial flow {kind!r}")

@@ -221,6 +221,17 @@ def test_cli_trains_on_cpu(tmp_path, capsys):
     assert moved and jmod.config.channels == (256, 160, 112, 80)
 
 
+def test_cli_turns_tf32_off(tmp_path, monkeypatch):
+    """The trainer runs the f32 config in f32: cuDNN and matmul TF32 off
+    after main, whatever they were before (monkeypatch restores them)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    tcli.main(["--model", "rife", "--steps", "1", "--batch", "1", "--crop", "96", "--device",
+               "cpu", "--out", str(tmp_path / "r.npz")])
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
 def test_cli_refusals(monkeypatch):
     with pytest.raises(SystemExit, match="already exists"):
         tcli.main(["--model", "rife", "--steps", "1", "--device", "cpu"])

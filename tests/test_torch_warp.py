@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import smooth_flow, windowed_reference
+from _torch_port import adversarial_flow, smooth_flow, windowed_reference
 from vfisr_tpu.core.warp import flow_warp as jax_flow_warp
 from vfisr_tpu_torch.core import warp as tcore
 from vfisr_tpu_torch.ops.cuda import warp as tw
@@ -70,6 +70,68 @@ def test_windowed_plain_matches_pallas_interpret(jax_warp, case, border, dt):
     assert out.dtype == torch.float32 and out.shape == img.shape
     err = np.abs(out.numpy() - ref.astype(np.float32)).max()
     assert err <= TOL[dt], err
+
+
+# the window origin's edge cases (_torch_port.adversarial_flow): (kind,
+# (n, h, w, c), r, border, dtype). The kernels compute the origin that the
+# plain twin takes from window_origins; these pin its semantics to the
+# Pallas kernel's on the CPU
+ADVERSARIAL_PARAMS = [
+    ("tie", (2, 64, 512, 3), (2, 2), "replicate", "f32"),
+    ("tie", (1, 64, 300, 3), (2, 2), "replicate", "bf16"),
+    ("large", (2, 40, 300, 3), (3, 4), "replicate", "f32"),
+    ("ragged", (1, 270, 48, 1), 8, "replicate", "f32"),
+    ("ragged", (1, 48, 300, 3), (2, 2), "constant", "bf16"),
+    ("per_batch_t", (3, 33, 100, 3), (3, 4), "replicate", "f32"),
+    ("odd_row", (2, 96, 300, 3), (2, 2), "replicate", "bf16"),
+    ("odd_row", (1, 64, 260, 3), (3, 4), "constant", "bf16"),
+]
+
+
+@pytest.mark.parametrize("kind,shape,r,border,dt", ADVERSARIAL_PARAMS)
+def test_windowed_plain_matches_pallas_interpret_adversarial(jax_warp, kind, shape, r, border,
+                                                             dt):
+    n, h, w, c = shape
+    rng = np.random.default_rng(zlib.crc32(f"{kind}/{shape}/{border}/{dt}".encode()))
+    img = rng.random((n, h, w, c), np.float32)
+    flow, t = adversarial_flow(kind, rng, n, h, w)
+    jdt, tdt = DTYPES[dt]
+    ref = np.asarray(jax_warp(jnp.asarray(img), jnp.asarray(flow), jnp.asarray(t, jnp.float32),
+                              r=r, border=border, interpret=True, compute_dtype=jdt))
+    out = tw.warp_windowed(torch.from_numpy(img), torch.from_numpy(flow), torch.tensor(t),
+                           r=r, border=border, compute_dtype=tdt)
+    err = np.abs(out.numpy() - ref.astype(np.float32)).max()
+    assert err <= TOL[dt], err
+
+
+def test_tie_case_pins_the_rounding(monkeypatch):
+    """Every tile mean of the tie case lands on .5, and rounding it half up
+    instead of half-even moves origins and changes the warp."""
+    n, h, w, c = 2, 64, 512, 3
+    rng = np.random.default_rng(8)
+    flow, t = adversarial_flow("tie", rng, n, h, w)
+    flow_t = torch.from_numpy(flow)
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32))
+    means = flow_t.reshape(n, 2, 32, 2, 256, 2).mean(dim=(2, 4)) * t
+    assert torch.equal(means - torch.floor(means), torch.full_like(means, 0.5))
+    even = tw.window_origins(flow_t, torch.full((n,), t), 2, 2, bf16=False)
+    out_even = tw.warp_windowed_plain(img, flow_t, t, r=(2, 2))
+    monkeypatch.setattr(torch, "round", lambda x: torch.floor(x + 0.5))
+    up = tw.window_origins(flow_t, torch.full((n,), t), 2, 2, bf16=False)
+    out_up = tw.warp_windowed_plain(img, flow_t, t, r=(2, 2))
+    assert not torch.equal(even, up)
+    assert (out_even - out_up).abs().max() > 0.05
+
+
+def test_odd_row_case_has_odd_row_origins():
+    """The odd_row case gives odd f32 row origins, which bf16 rounds down."""
+    rng = np.random.default_rng(9)
+    flow, t = adversarial_flow("odd_row", rng, 2, 96, 300)
+    flow_t = torch.from_numpy(flow)
+    f32 = tw.window_origins(flow_t, torch.full((2,), t), 2, 2, bf16=False)[..., 0]
+    bf16 = tw.window_origins(flow_t, torch.full((2,), t), 2, 2, bf16=True)[..., 0]
+    assert (f32 % 2 == 1).any() and (f32 % 2 == 0).any()
+    assert torch.equal(bf16, f32 - f32 % 2)
 
 
 def test_past_r_case_clamps():

@@ -21,7 +21,12 @@ values, horizontal weights and horizontal sums are bf16, one more vertical
 tap is added (``nsh_y = 2ry+3``) and the window row origin is rounded down
 to even, as the TPU kernel's bf16 path does.
 
-What bounds it on the H100 is bytes: see the note in the CUDA source.
+Each kernel computes its tiles' window origins itself (bit for bit as
+``window_origins``), so a call is one launch and the wrappers run no torch
+op besides allocating their outputs (and K2's ``ct.contiguous()``).
+``kernel_origins`` returns the origins the kernels compute, for the checks
+that hold them against ``window_origins``. What bounds the kernels on the
+H100 is bytes: see the note in the CUDA source.
 
 ``warp_windowed_plain`` (with its ``weight_mode``) and
 ``warp_windowed_grad_plain`` are the same functions in plain PyTorch. The
@@ -32,6 +37,7 @@ kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -46,7 +52,7 @@ SOURCE = _PKG / "csrc" / "warp_windowed.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-TILE = (32, 256)
+TILE = (32, 256)  # the kernels' kTh, kTw
 
 # Kernel launches so far (K1, K2); a run sets them to 0 and reads them to
 # show which path it went through. Only the CUDA launches below add to them.
@@ -83,9 +89,13 @@ def build() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.warp_windowed_launch.argtypes = [p] * 5 + [i] * 14 + [f] * 6 + [p]
-    lib.warp_windowed_grad_launch.argtypes = [p] * 7 + [i] * 14 + [f] * 6 + [p]
-    lib.warp_windowed_launch.restype = lib.warp_windowed_grad_launch.restype = ctypes.c_int
+    t_args = [p, f, i]  # t pointer (or None), t_scalar, t_stride
+    lib.warp_windowed_launch.argtypes = [p, p, *t_args, p] + [i] * 14 + [f] * 6 + [p]
+    lib.warp_windowed_grad_launch.argtypes = [p, p, *t_args, p, p, p] + [i] * 14 + [f] * 6 + [p]
+    lib.warp_windowed_origins_launch.argtypes = [p, *t_args, p] + [i] * 9 + [p]
+    for fn in (lib.warp_windowed_launch, lib.warp_windowed_grad_launch,
+               lib.warp_windowed_origins_launch):
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -181,17 +191,38 @@ def _check(img, flow, border, compute_dtype):
         raise ValueError(f"img on {img.device}, flow on {flow.device}")
 
 
-def _kernel_inputs(name: str, img: torch.Tensor, flow: torch.Tensor, t, r,
-                   compute_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(t_arr, window origins) for a launch on CUDA tensors; raises on any
-    other device or on non-contiguous img or flow."""
+def _check_cuda(name: str, img: torch.Tensor, flow: torch.Tensor) -> None:
+    """Raises unless img and flow are contiguous CUDA tensors."""
     if img.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, not {img.device}")
     if not (img.is_contiguous() and flow.is_contiguous()):
         raise ValueError(f"{name} needs contiguous img and flow")
-    ry, rx = _radii(r)
-    t_arr = _t_array(t, img.shape[0], img.device)
-    return t_arr, window_origins(flow, t_arr, ry, rx, compute_dtype == torch.bfloat16)
+
+
+def _t_args(t, n: int, device) -> tuple:
+    """The kernels' (t pointer or None, t_scalar, t_stride) and the tensor
+    the pointer points into (kept alive across the launch). A Python
+    number goes as t_scalar; an f32 tensor of 1 or n elements on the
+    device, as it is; anything else through ``_t_array``."""
+    if isinstance(t, (int, float)):
+        return (None, float(t), 0), None
+    if not (torch.is_tensor(t) and t.dtype == torch.float32 and t.device == device
+            and t.numel() in (1, n) and t.is_contiguous()):
+        t = _t_array(t, n, device)
+    return (t.data_ptr(), 0.0, int(t.numel() == n and n > 1)), t
+
+
+@functools.lru_cache(maxsize=None)
+def _shape_args(n, h, w, c, img_bf16, flow_bf16, ry, rx, bf16, border) -> tuple:
+    """The launch arguments K1 and K2 share, after their pointers."""
+    pt, pl, nsh_y, nsh_x, clip = _geometry(h, w, ry, rx, bf16, border)
+    return (n, h, w, c, int(img_bf16), int(flow_bf16), int(bf16), int(border == "constant"),
+            ry, rx, pt, pl, nsh_y, nsh_x, *clip, nsh_y - 1.001, nsh_x - 1.001)
+
+
+def _launch_args(img, flow, r, border, compute_dtype) -> tuple:
+    return _shape_args(*img.shape, img.dtype == torch.bfloat16, flow.dtype == torch.bfloat16,
+                       *_radii(r), compute_dtype == torch.bfloat16, border)
 
 
 def warp_windowed(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
@@ -207,34 +238,25 @@ def warp_windowed(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
     _check(img, flow, border, compute_dtype)
     if img.device.type == "cpu":
         return warp_windowed_plain(img, flow, t, r, border, compute_dtype)
-    t_arr, origin = _kernel_inputs("warp_windowed", img, flow, t, r, compute_dtype)
+    _check_cuda("warp_windowed", img, flow)
     out = torch.empty_like(img)
-    launch(img, flow, t_arr, origin, out, r, border, compute_dtype)
+    launch(img, flow, t, out, r, border, compute_dtype)
     return out
 
 
-def _launch_args(img, flow, t_arr, origin, r, border, compute_dtype) -> tuple:
-    """The launch arguments K1 and K2 share, after their pointer arguments."""
-    n, h, w, c = img.shape
-    ry, rx = _radii(r)
-    bf16 = compute_dtype == torch.bfloat16
-    pt, pl, nsh_y, nsh_x, (ylo, yhi, xlo, xhi) = _geometry(h, w, ry, rx, bf16, border)
-    return (n, h, w, c, int(img.dtype == torch.bfloat16), int(flow.dtype == torch.bfloat16),
-            int(bf16), int(border == "constant"), TILE[0], TILE[1], origin.shape[1],
-            origin.shape[2], pt, pl, ylo, yhi, xlo, xhi, nsh_y - 1.001, nsh_x - 1.001)
-
-
-def launch(img: torch.Tensor, flow: torch.Tensor, t_arr: torch.Tensor, origin: torch.Tensor,
-           out: torch.Tensor, r, border: str, compute_dtype: torch.dtype) -> None:
-    """Launch K1 on checked CUDA tensors (``warp_windowed`` prepares
-    them): t_arr [N] f32, origin from ``window_origins``, out like img."""
+def launch(img: torch.Tensor, flow: torch.Tensor, t, out: torch.Tensor, r, border: str,
+           compute_dtype: torch.dtype) -> None:
+    """Launch K1 on checked CUDA tensors (``warp_windowed`` checks them):
+    t a number or a tensor of 1 or N elements, out like img. The kernel
+    computes the window origins itself."""
     global launches
     lib = build()
+    t_args, _keep = _t_args(t, img.shape[0], img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.warp_windowed_launch(
-            img.data_ptr(), flow.data_ptr(), t_arr.data_ptr(), origin.data_ptr(), out.data_ptr(),
-            *_launch_args(img, flow, t_arr, origin, r, border, compute_dtype), stream)
+            img.data_ptr(), flow.data_ptr(), *t_args, out.data_ptr(),
+            *_launch_args(img, flow, r, border, compute_dtype), stream)
     if err != 0:
         raise RuntimeError(f"warp_windowed kernel launch failed: cudaError {err}")
     launches += 1
@@ -259,32 +281,63 @@ def warp_windowed_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tenso
                          f"{tuple(ct.shape)} {ct.dtype} on {ct.device}")
     if img.device.type == "cpu":
         return warp_windowed_grad_plain(img, flow, t, ct, r, border, compute_dtype)
-    t_arr, origin = _kernel_inputs("warp_windowed_grad", img, flow, t, r, compute_dtype)
+    _check_cuda("warp_windowed_grad", img, flow)
     grad_flow = torch.empty_like(flow)
     cg = torch.empty(flow.shape, dtype=torch.float32, device=flow.device)
     # autograd hands back cotangents of permuted outputs (rife.py's NCHW
     # views): the kernel reads ct as [N,H,W,C] contiguous
-    launch_grad(img, flow, t_arr, origin, ct.contiguous(), grad_flow, cg, r, border,
-                compute_dtype)
+    launch_grad(img, flow, t, ct.contiguous(), grad_flow, cg, r, border, compute_dtype)
     return grad_flow, cg
 
 
-def launch_grad(img: torch.Tensor, flow: torch.Tensor, t_arr: torch.Tensor,
-                origin: torch.Tensor, ct: torch.Tensor, grad_flow: torch.Tensor,
-                cg: torch.Tensor, r, border: str, compute_dtype: torch.dtype) -> None:
+def launch_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor,
+                grad_flow: torch.Tensor, cg: torch.Tensor, r, border: str,
+                compute_dtype: torch.dtype) -> None:
     """Launch K2 on checked CUDA tensors (``warp_windowed_grad`` prepares
-    them): ct contiguous like img, grad_flow like flow, cg [N,H,W,2] f32."""
+    them): t as for ``launch``, ct contiguous like img, grad_flow like flow
+    and cg [N,H,W,2] f32, both fresh allocations (written as aligned
+    pairs). The kernel recomputes the forward's window origins."""
     global grad_launches
     lib = build()
+    t_args, _keep = _t_args(t, img.shape[0], img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.warp_windowed_grad_launch(
-            img.data_ptr(), flow.data_ptr(), t_arr.data_ptr(), origin.data_ptr(), ct.data_ptr(),
-            grad_flow.data_ptr(), cg.data_ptr(),
-            *_launch_args(img, flow, t_arr, origin, r, border, compute_dtype), stream)
+            img.data_ptr(), flow.data_ptr(), *t_args, ct.data_ptr(), grad_flow.data_ptr(),
+            cg.data_ptr(), *_launch_args(img, flow, r, border, compute_dtype), stream)
     if err != 0:
         raise RuntimeError(f"warp_windowed_grad kernel launch failed: cudaError {err}")
     grad_launches += 1
+
+
+def kernel_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The window origins K1 and K2 compute in their prologue, from the
+    same device function, for flow [N,H,W,2] on a CUDA card: [N, TY, TX, 2]
+    int32 (oy, ox), canvas coordinates, as ``window_origins`` gives them.
+    A check of the kernels (chip_smoke.py, the CUDA tests): the warp's
+    output alone can hide an origin one pixel off. The main path never
+    calls it. Raises on a CPU tensor: the kernels have no CPU mode."""
+    if flow.device.type != "cuda" or flow.ndim != 4 or flow.shape[-1] != 2:
+        raise ValueError(f"kernel_origins needs a CUDA flow [N,H,W,2]; got {tuple(flow.shape)} "
+                         f"on {flow.device}")
+    if flow.dtype not in (torch.float32, torch.bfloat16) or not flow.is_contiguous():
+        raise ValueError(f"kernel_origins needs a contiguous f32 or bf16 flow; got {flow.dtype}")
+    n, h, w, _ = flow.shape
+    ry, rx = _radii(r)
+    pt, pl = _content_origin(ry, rx)
+    th, tw = TILE
+    origin = torch.empty((n, -(-h // th), -(-w // tw), 2), dtype=torch.int32, device=flow.device)
+    lib = build()
+    t_args, _keep = _t_args(t, n, flow.device)
+    with torch.cuda.device(flow.device):
+        stream = torch.cuda.current_stream(flow.device).cuda_stream
+        err = lib.warp_windowed_origins_launch(
+            flow.data_ptr(), *t_args, origin.data_ptr(), n, h, w,
+            int(flow.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), ry, rx, pt,
+            pl, stream)
+    if err != 0:
+        raise RuntimeError(f"warp_windowed_origins kernel launch failed: cudaError {err}")
+    return origin
 
 
 WEIGHT_MODES = ("interp", "grad_y", "grad_x")

@@ -78,6 +78,11 @@ def main(argv=None) -> float:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda needs a CUDA card; pass --device cpu to train on the CPU")
 
+    # the models' f32 config is f32: no TF32 in cuDNN's convolutions or in
+    # matmuls (torch turns cuDNN's on by default), as FlagshipVFI.load sets
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
     cls = MODELS[args.model]
     overrides = {}
     if args.level_radius:
