@@ -50,10 +50,35 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    peak memory), a save_npz/load round trip in a temporary directory, and
    per launch shape the kernels alone (CUDA-graph replay), the wrappers'
    host time, their bounds, plain twins and torch's grid_sample (forward,
-   and its grid gradient for K2) as yardsticks.
+   and its grid gradient for K2) as yardsticks;
+9. loads the adaptive model through the registry, get_model("adaptive",
+   load=True), with weights/rife.npz (full-width RIFE, f32, bf16 warp
+   windows), weights/vfimamba.npz (d_model 256, 12 blocks, d_state 16, two
+   refinement levels) and weights/router_gate.json by explicit path (strict;
+   every parameter checked against its file; VFIMamba must stay enabled),
+   and streams a 1920x1080 sequence with a static HUD through
+   AdaptivePipeline.interpolate_batch (hosted), one pair per call: five 3 px
+   pans fill the HUD ring, then a static pair, a 3 px pan, an 8 px pan and a
+   cut, with K1's count set to 0 before and read after and
+   ``window_origins`` raising. Checks: each pair's route equals bin_winner
+   of its measured motion_mean (its K1 launches, 17 for RIFE, 19 for
+   VFIMamba, 13 for a cut, say which expert ran), rife, vfimamba and
+   scene_change all hit; HUD pixels equal their source where the composite
+   applies and the cut's midpoints are its x0 elsewhere; the moving
+   midpoints beat frame duplication; K1 and its origins at every launch
+   against the twin and window_origins; the whole sequence with the kernel
+   against it with the plain twin (2/255) and masked against hosted (1e-5),
+   under deterministic cuDNN. Then process_pair once (5 frames at 2560x1440
+   uint8), and the times: ms per pair and route, the analysis, RIFE and
+   VFIMamba alone (the selective scan's share of VFIMamba), peak memory,
+   VFIMamba's decoder conv with and without cuDNN, and K1 per launch shape
+   as in step 7.
 
 Any failure raises and the exit code is not 0. The line before the last is
-{"kernels": [...]}; the last is {"ok": true, "device": {...}}.
+{"kernels": [...]}: per kernel, its launches counted on every path that runs
+it (K1: the flagship pairs, the train steps and the adaptive sequence; K2:
+the train steps) and the device time, bound, plain-twin and grid_sample time
+of exactly those launches. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -61,6 +86,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -85,6 +111,16 @@ TRAIN_STEPS = 10  # timed, after 2 warm-up steps
 K1_PER_STEP = 10  # 2 data warps + 4 IFNet warps (levels 1-3, final) + their 4 recomputes
 K2_PER_STEP = 4  # the backward of the 4 IFNet warps
 ORIGIN_TABLE = None  # ops.cuda.warp.window_origins, once main() has imported it
+# the adaptive phase: AdaptivePipeline (get_model("adaptive")) over a 1080p
+# sequence with a static HUD. HISTORY_PAIRS 3 px pans fill the HUD ring,
+# then the measured pairs: (name, x0, x1) as (pan offset px or cut scene)
+HISTORY_PAIRS, PAN_PX = 5, 3
+MEASURED = (("static", 15, 15), ("pan 3 px", 15, 18), ("pan 8 px", 18, 26), ("cut", 26, "cut"))
+# K1 launches per pair and route: Farneback 12 + scene gate 1, then RIFE's
+# 4 (s4, 2x s2, final; batch 6) or VFIMamba's 6 (two per refinement level
+# and two at full res; batch 3)
+K1_PER_ROUTE = {"rife": 17, "vfimamba": 19, "scene_change": 13}
+K1_MASKED = 23  # both experts run on every pair
 
 
 def require(ok: bool, what: str) -> None:
@@ -111,6 +147,35 @@ def game_frame(t: float, device, h: int = H, w: int = W, step: int = STEP_PX) ->
     ly, lx = yy[:rh, :rw], xx[:rh, :rw]
     tex = 0.5 + 0.4 * (torch.sin(lx / 3.0) * torch.cos(ly / 4.0))[..., None]
     f[y0:y0 + rh, x0:x0 + rw] = tex * torch.tensor([1.0, 0.6, 0.2], device=device)
+    f[: h // 6, : w // 5] = torch.tensor([0.9, 0.9, 0.1], device=device)
+    return torch.clamp(torch.floor(f * 255.0 + 0.5), 0, 255).to(torch.uint8)
+
+
+def scene_frame(x, device, h: int = H, w: int = W, waves: int = 24) -> torch.Tensor:
+    """[h,w,3] uint8 frame of the adaptive phase's sequence: for a number x,
+    a texture of seeded random plane waves (wavelengths 8-64 px) moved
+    right by x px; for "cut", another scene (seeded random 2x2 px blocks at
+    1920 wide, which no flow maps onto the first). A static HUD box top
+    left in both."""
+    if x == "cut":
+        gen = torch.Generator(device="cpu").manual_seed(1)
+        blk = max(1, w // 960)
+        blocks = torch.rand((h // blk + 1, w // blk + 1, 3), generator=gen).to(device)
+        f = blocks.repeat_interleave(blk, 0).repeat_interleave(blk, 1)[:h, :w].contiguous()
+    else:
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        k = 2 * math.pi / (8.0 + 56.0 * torch.rand((waves,), generator=gen))
+        ang = torch.rand((waves,), generator=gen) * 2 * math.pi
+        kx, ky = (k * torch.cos(ang)).tolist(), (k * torch.sin(ang)).tolist()
+        phase = (torch.rand((waves, 3), generator=gen) * 2 * math.pi).tolist()
+        amp = (0.35 / math.sqrt(waves) * (0.5 + torch.rand((waves, 3), generator=gen))).tolist()
+        yy, xx = torch.meshgrid(torch.arange(h, device=device, dtype=torch.float32),
+                                torch.arange(w, device=device, dtype=torch.float32), indexing="ij")
+        f = torch.full((h, w, 3), 0.5, device=device)
+        for i in range(waves):
+            arg = kx[i] * (xx - x) + ky[i] * yy
+            for c in range(3):
+                f[..., c] += amp[i][c] * torch.sin(arg + phase[i][c])
     f[: h // 6, : w // 5] = torch.tensor([0.9, 0.9, 0.1], device=device)
     return torch.clamp(torch.floor(f * 255.0 + 0.5), 0, 255).to(torch.uint8)
 
@@ -443,9 +508,59 @@ def time_grad_launch(kw, a: dict) -> dict:
                 library=time_ms(grid_sample_grad_call(a), 20))
 
 
-def train_phase(kw, rife_npz: Path) -> dict:
-    """Step 8 of the module docstring. Returns the numbers of K2's line in
-    the kernels JSON (per train step)."""
+def path_numbers(launches: int, err: float, per_unit: dict, units: int) -> dict:
+    """A path's numbers for the kernels JSON: its counted launches, the
+    largest kernel-vs-plain error, and the device times of those launches
+    (the per-pair or per-step totals times the pairs or steps counted)."""
+    return dict(launches=launches, err=err, by=per_unit["by"],
+                **{k: per_unit[k] * units for k in ("kernel", "plain", "bound", "library")})
+
+
+def kernel_entry(name: str, paths: list) -> dict:
+    """One kernel's object of the kernels JSON, summed over the paths that
+    launch it."""
+    by = {p["by"] for p in paths}
+    return {"name": name, "route": "cuda", "source": "vfisr_tpu_torch/csrc/warp_windowed.cu",
+            "replaces": "vfisr_tpu/ops/pallas/warp.py:348",
+            "launches": sum(p["launches"] for p in paths),
+            "max_abs_err": max(p["err"] for p in paths),
+            "ms": sum(p["kernel"] for p in paths), "plain_ms": sum(p["plain"] for p in paths),
+            "bound_ms": sum(p["bound"] for p in paths),
+            "bound_by": "bytes" if by == {"bytes"} else "operations",
+            "library_ms": sum(p["library"] for p in paths)}
+
+
+def shape_times(kw, recs: list, timer) -> dict:
+    """Per distinct launch shape of recs: its count and the timer's numbers."""
+    by_shape = {}
+    for a in recs:
+        key = shape_key(a)
+        if key not in by_shape:
+            by_shape[key] = dict(n=0, **timer(kw, a))
+        by_shape[key]["n"] += 1
+    return by_shape
+
+
+def shape_key(a: dict) -> tuple:
+    return (tuple(a["img"].shape), a["img"].dtype, a["compute_dtype"], a["r"], a["border"])
+
+
+def _recording(kw, recs: list):
+    """K1's wrapper, recording each launch's inputs (cloned) in recs."""
+    real = kw.warp_windowed
+
+    def recording(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
+        recs.append(dict(img=img.clone(), flow=flow.clone(),
+                         t=t.clone() if torch.is_tensor(t) else t, r=r, border=border,
+                         compute_dtype=compute_dtype))
+        return real(img, flow, t, r, border, compute_dtype)
+
+    return recording
+
+
+def train_phase(kw, rife_npz: Path) -> tuple:
+    """Step 8 of the module docstring. Returns K1's and K2's numbers over
+    the counted train steps (``path_numbers``)."""
     from vfisr_tpu_torch.models.sota.rife import RIFEModel
     from vfisr_tpu_torch.train.device_data import device_synthetic_batch
     from vfisr_tpu_torch.train.train import TrainState, create_train_state, make_train_step
@@ -474,20 +589,13 @@ def train_phase(kw, rife_npz: Path) -> dict:
     real_warp, real_grad = kw.warp_windowed, kw.warp_windowed_grad
     rec1, rec2 = [], []
 
-    def keep(t):
-        return t.clone() if torch.is_tensor(t) else t
-
-    def rec_warp(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
-        rec1.append(dict(img=img.clone(), flow=flow.clone(), t=keep(t), r=r, border=border,
-                         compute_dtype=compute_dtype))
-        return real_warp(img, flow, t, r, border, compute_dtype)
-
     def rec_grad(img, flow, t, ct, r=8, border="replicate", compute_dtype=torch.float32):
-        rec2.append(dict(img=img.clone(), flow=flow.clone(), t=keep(t), ct=ct.contiguous().clone(),
+        rec2.append(dict(img=img.clone(), flow=flow.clone(),
+                         t=t.clone() if torch.is_tensor(t) else t, ct=ct.contiguous().clone(),
                          r=r, border=border, compute_dtype=compute_dtype))
         return real_grad(img, flow, t, ct, r, border, compute_dtype)
 
-    kw.warp_windowed, kw.warp_windowed_grad = rec_warp, rec_grad
+    kw.warp_windowed, kw.warp_windowed_grad = _recording(kw, rec1), rec_grad
     try:
         with origin_table_raises(kw):
             kw.launches = kw.grad_launches = 0
@@ -511,8 +619,9 @@ def train_phase(kw, rife_npz: Path) -> dict:
         max_err2 = max(max_err2, check_warp_grad(kw, f"train-step launch {j}", a))
     for a in grad_cases(rec2):
         max_err2 = max(max_err2, check_warp_grad(kw, a["name"], a))
+    max_err1 = 0.0
     for j, a in enumerate(rec1):
-        check_warp(kw, f"train-step launch {j}", a)
+        max_err1 = max(max_err1, check_warp(kw, f"train-step launch {j}", a))
 
     # the whole step with the kernels against the same step with both plain
     # twins: same batch, same params (an optimizer with lr 0 leaves them;
@@ -607,12 +716,7 @@ def train_phase(kw, rife_npz: Path) -> dict:
     totals = {}
     for name, recs, timer in (("warp_windowed_grad", rec2, time_grad_launch),
                               ("warp_windowed", rec1, time_launch)):
-        by_shape = {}
-        for a in recs:
-            key = (tuple(a["img"].shape), a["img"].dtype, a["compute_dtype"], a["r"], a["border"])
-            if key not in by_shape:
-                by_shape[key] = dict(n=0, **timer(kw, a))
-            by_shape[key]["n"] += 1
+        by_shape = shape_times(kw, recs, timer)
         tot = dict(kernel=0.0, host=0.0, wrapper=0.0, plain=0.0, bound=0.0, library=0.0)
         for key, v in by_shape.items():
             print(f"train {name} shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} "
@@ -630,13 +734,287 @@ def train_phase(kw, rife_npz: Path) -> dict:
               f"{tot['host']:.4f} ms, wrapper {tot['wrapper']:.4f} ms, plain {tot['plain']:.4f} "
               f"ms, grid_sample {tot['library']:.4f} ms")
     _phase("train_timing", t0)
-    g = totals["warp_windowed_grad"]
-    return {"name": "warp_windowed_grad", "route": "cuda",
-            "source": "vfisr_tpu_torch/csrc/warp_windowed.cu",
-            "replaces": "vfisr_tpu/ops/pallas/warp.py:348",
-            "launches": k2_run, "max_abs_err": max_err2, "ms": g["kernel"],
-            "plain_ms": g["plain"], "bound_ms": g["bound"], "bound_by": g["by"],
-            "library_ms": g["library"]}
+    return (path_numbers(k1_run, max_err1, totals["warp_windowed"], TRAIN_STEPS),
+            path_numbers(k2_run, max_err2, totals["warp_windowed_grad"], TRAIN_STEPS))
+
+
+def adaptive_phase(kw) -> dict:
+    """Step 9 of the module docstring. Returns K1's numbers over the counted
+    sequence (``path_numbers``)."""
+    from vfisr_tpu_torch.core.frames import to_uint8
+    from vfisr_tpu_torch.core.resize import scale_size
+    from vfisr_tpu_torch.models.registry import get_model
+    from vfisr_tpu_torch.models.sota import vfimamba as tvm
+    from vfisr_tpu_torch.models.sota.rife import RIFEConfig
+    from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax
+    from vfisr_tpu_torch.utils.router_gate import bin_winner, expert_bins
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    files = {"rife_weights": ROOT / "weights" / "rife.npz",
+             "vfimamba_weights": ROOT / "weights" / "vfimamba.npz",
+             "gate_path": ROOT / "weights" / "router_gate.json"}
+    require(all(p.is_file() for p in files.values()), f"{list(files.values())} present")
+    # the registry's entry point; explicit paths make every load strict
+    model = get_model("adaptive", load=True, **{k: str(p) for k, p in files.items()})
+    gate = str(files["gate_path"])
+    require(model.enable_vfimamba, "VFIMamba enabled after load")
+    require(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32),
+            "TF32 off after load")
+    require(model._rife.CONFIG == RIFEConfig() and model._rife.CONFIG.channels == (256, 160, 112, 80),
+            "full-width RIFE in RIFEModel's default config")
+    require(model._vfimamba.variant == "full" and model._vfimamba.cfg == tvm.MambaConfig()
+            and model._vfimamba.cfg.d_model == 256, "full VFIMamba")
+    for expert, path in ((model._rife, files["rife_weights"]),
+                         (model._vfimamba, files["vfimamba_weights"])):
+        state, want = expert.module.state_dict(), params_from_jax(load_npz(str(path)))
+        require(set(state) == set(want) and all(torch.equal(state[k].cpu(), want[k]) for k in want),
+                f"every parameter of {path.name} loaded")
+    require(model.router.scene_warp_ssim_threshold != 1.0 and expert_bins("native", gate),
+            "calibrated scene gate and expert bins")
+    print(f"adaptive: get_model('adaptive', load=True): RIFE {model._rife.info.parameters} and "
+          f"VFIMamba {model._vfimamba.info.parameters} parameters, scene gate "
+          f"{model.router.scene_warp_ssim_threshold}")
+
+    seq = [(f"history {i}", PAN_PX * i, PAN_PX * (i + 1)) for i in range(HISTORY_PAIRS)]
+    seq += list(MEASURED)
+    u8 = {x: scene_frame(x, dev) for _, a, b in seq for x in (a, b)}
+
+    def batched(x):
+        return u8[x].float()[None] / 255.0
+
+    sigs = []
+    real_analyze = model.router.analyze_device
+
+    def capture(x0, x1):
+        sig = real_analyze(x0, x1)
+        sigs.append(sig)
+        return sig
+
+    model.router.analyze_device = capture
+
+    def run(pair_ms=None):
+        """The sequence as a stream (one pair per call, the HUD ring
+        carried); returns the outputs and each pair's K1 launches."""
+        model.router.reset_history()
+        model.reset_stats()
+        sigs.clear()
+        outs, counts = [], []
+        for _, a, b in seq:
+            k = kw.launches
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs.append(model.interpolate_batch(batched(a), batched(b), TS))
+            end.record()
+            end.synchronize()
+            if pair_ms is not None:
+                pair_ms.append(start.elapsed_time(end))
+            counts.append(kw.launches - k)
+        return outs, counts
+
+    t0 = _phase("adaptive_load", t0)
+
+    # warm-up run, recording every launch's inputs for the checks
+    recorded = []
+    real_warp = kw.warp_windowed
+    kw.warp_windowed = _recording(kw, recorded)
+    try:
+        with origin_table_raises(kw):
+            run()
+    finally:
+        kw.warp_windowed = real_warp
+    t0 = _phase("adaptive_record", t0)
+
+    # the path, counted and timed
+    pair_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    with origin_table_raises(kw):
+        kw.launches = 0
+        outs, counts = run(pair_ms)
+        launches = kw.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    require(len(recorded) == launches == sum(counts), f"{launches} K1 launches in the sequence")
+    t0 = _phase("adaptive_main", t0)
+
+    # routes: each pair's equals bin_winner of its measured motion, and its
+    # K1 launches say which expert ran
+    routes = []
+    for (name, a, b), sig, n in zip(seq, sigs, counts):
+        mm = float(sig["motion_mean"][0])
+        scene = bool(sig["is_scene_change"][0])
+        route = "scene_change" if scene else bin_winner("native", mm, path=gate)
+        routes.append(route)
+        print(f"adaptive pair {name}: motion_mean {mm:.4f} px, motion_max "
+              f"{float(sig['motion_max'][0]):.3f}, ssim {float(sig['ssim'][0]):.4f}, warped_ssim "
+              f"{float(sig['warped_ssim'][0]):.4f}, hud_coverage {float(sig['hud_coverage'][0]):.4f}"
+              f" -> {route}, {n} K1 launches")
+        require(n == K1_PER_ROUTE[route], f"pair {name}: {n} K1 launches for route {route}")
+    measured = routes[HISTORY_PAIRS:]
+    require(measured[-1] == "scene_change" and set(measured) == set(K1_PER_ROUTE),
+            f"the measured pairs hit every route: {measured}")
+    stats = model.get_stats()
+    require([stats["rife"], stats["vfimamba"], stats["scene_change"]]
+            == [routes.count(r) for r in ("rife", "vfimamba", "scene_change")], f"stats {stats}")
+
+    # outputs: finite frames in [0, 1]; HUD pixels their source where the
+    # composite applies; the cut pair's midpoints x0 but there; the moving
+    # midpoints above frame duplication against the true in-between frames
+    gain = []
+    for i, ((name, a, b), sig, out) in enumerate(zip(seq, sigs, outs)):
+        require(tuple(out.shape) == (1, len(TS), H, W, 3) and bool(torch.isfinite(out).all())
+                and float(out.min()) >= 0.0 and float(out.max()) <= 1.0, f"pair {name} output")
+        x0, x1 = batched(a)[0], batched(b)[0]
+        hud = sig["hud_mask"][0] & bool(sig["hud_coverage"][0] > 0.01)
+        if i >= HISTORY_PAIRS:
+            require(bool(hud.any()), f"pair {name}: the HUD composite engaged")
+        for k, t in enumerate(TS):
+            mid, src = out[0, k], (x0 if t < 0.5 else x1)
+            require(torch.equal(mid[hud], src[hud]), f"pair {name} t={t}: HUD pixels")
+            if routes[i] == "scene_change":
+                require(torch.equal(mid[~hud], x0[~hud]), f"pair {name} t={t}: the cut holds x0")
+            elif a != b:
+                truth = scene_frame(a + t * (b - a), dev)
+                p_mid, p_dup = psnr(to_uint8(mid), truth), psnr(u8[a], truth)
+                gain.append(p_mid - p_dup)
+                require(p_mid > p_dup, f"pair {name} t={t}: interpolated {p_mid:.2f} dB <= "
+                                       f"duplicate {p_dup:.2f} dB")
+    print(f"adaptive midpoint PSNR gain over frame duplication (dB): min {min(gain):.3f} "
+          f"mean {sum(gain) / len(gain):.3f}")
+
+    # K1 against its twin, and the kernels' origins, at every launch
+    max_err = 0.0
+    for j, a in enumerate(recorded):
+        check_origins(kw, f"adaptive launch {j}", a)
+        max_err = max(max_err, check_warp(kw, f"adaptive launch {j}", a))
+    t0 = _phase("adaptive_checks", t0)
+
+    # the whole sequence with the kernel against it with the plain twin, and
+    # masked against hosted (deterministic cuDNN for all three runs)
+    def plain_warp(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
+        return kw.warp_windowed_plain(img, flow, t, r, border, compute_dtype)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs_k, _ = run()
+        kw.warp_windowed = plain_warp
+        try:
+            outs_p, _ = run()
+        finally:
+            kw.warp_windowed = real_warp
+        model.route_mode = "masked"
+        try:
+            outs_m, counts_m = run()
+        finally:
+            model.route_mode = "hosted"
+    finally:
+        torch.backends.cudnn.deterministic = False
+    d_twin = max((o - p).abs().max().item() for o, p in zip(outs_k, outs_p))
+    d_mask = max((o - m).abs().max().item() for o, m in zip(outs_k, outs_m))
+    print(f"adaptive sequence with kernel vs with plain twin: max {d_twin:.3e} (tolerance 2/255, "
+          f"K1's bound in bf16 windows); masked vs hosted: max {d_mask:.3e} (tolerance 1e-5), "
+          f"{counts_m} K1 launches per pair masked")
+    require(d_twin <= 2.0 / 255.0, "adaptive sequence, kernel vs twin")
+    require(d_mask <= 1e-5, "adaptive masked vs hosted")
+    require(all(n == K1_MASKED for n in counts_m), "masked mode runs both experts on every pair")
+
+    # the per-pair numpy entry point once: 5 frames at 2560x1440 uint8
+    _, a, b = MEASURED[2]
+    out_hw = scale_size(H, W, SCALE)
+    res = model.process_pair(u8[a].cpu().numpy(), u8[b].cpu().numpy(), 3, SCALE)
+    require(len(res.frames) == 5 and all(str(f.dtype) == "uint8" and f.shape == (*out_hw, 3)
+                                         for f in res.frames), "process_pair frames")
+    print(f"adaptive process_pair (pan 8 px, 5 frames {res.frames[0].shape} {res.frames[0].dtype}): "
+          f"{res.inference_time_ms:.3f} ms host clock, route "
+          f"{res.extra_info['analysis']['recommended_model']}, peak {res.vram_peak_mb:.1f} MB")
+    t0 = _phase("adaptive_entry", t0)
+
+    # where a pair's time goes, per route, each stage alone after warm-up
+    # (peaks: max_memory_allocated during the stage, over what was
+    # allocated before it: weights, frames and this script's recordings)
+    def over_resident(resident):
+        return f"peak {(torch.cuda.max_memory_allocated() - resident) / 1e6:.1f} MB over " \
+               f"{resident / 1e6:.1f} MB resident"
+
+    x = {name: (batched(a), batched(b)) for name, a, b in MEASURED}
+    for name, _, _ in MEASURED:
+        x0, x1 = x[name]
+        model.interpolate_batch(x0, x1, TS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ms = time_ms(lambda: model.interpolate_batch(x0, x1, TS), 3, warmup=0)
+        print(f"adaptive stage interpolate_batch, pair {name}: {ms:.3f} ms, "
+              f"{over_resident(resident)}")
+    x0, x1 = x["pan 3 px"]
+    print(f"adaptive stage analysis (analyze_device): {time_ms(lambda: real_analyze(x0, x1), 5):.3f} ms")
+    print(f"adaptive stage rife (RIFEModel.interpolate_batch, f32): "
+          f"{time_ms(lambda: model._rife.interpolate_batch(x0, x1, TS), 3):.3f} ms")
+    scans, real_scan = [], tvm.selective_scan
+
+    def timed_scan(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = real_scan(*args, **kwargs)
+        end.record()
+        scans.append((start, end))
+        return y
+
+    model._vfimamba.interpolate_batch(x0, x1, TS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    tvm.selective_scan = timed_scan
+    try:
+        fwd_ms = time_ms(lambda: model._vfimamba.interpolate_batch(x0, x1, TS), 2, warmup=0)
+    finally:
+        tvm.selective_scan = real_scan
+    scan_ms = sum(s.elapsed_time(e) for s, e in scans) / 2
+    print(f"adaptive stage vfimamba (VFIMambaModel.interpolate_batch, f32): {fwd_ms:.3f} ms, "
+          f"selective_scan {scan_ms:.3f} ms in {len(scans) // 2} calls ({100 * scan_ms / fwd_ms:.1f}%),"
+          f" {over_resident(resident)}")
+    # why VFIMamba's decoder conv runs without cuDNN
+    # (vfimamba.py::_without_cudnn): the conv at its shape each way
+    conv = model._vfimamba.module.Conv_3
+    feat = torch.randn((len(TS), conv.in_channels, -(-H // 32) * 4, -(-W // 32) * 4), device=dev)
+    with torch.no_grad():
+        for label, cudnn_on in (("cuDNN", True), ("PyTorch's own (the path)", False)):
+            torch.backends.cudnn.enabled = cudnn_on
+            try:
+                conv(feat)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                ms = time_ms(lambda: conv(feat), 3, warmup=0)
+            finally:
+                torch.backends.cudnn.enabled = True
+            print(f"adaptive stage vfimamba decoder conv {tuple(feat.shape)} -> {conv.out_channels}, "
+                  f"f32, {label}: {ms:.3f} ms, {over_resident(resident)}")
+    t0 = _phase("adaptive_breakdown", t0)
+
+    # K1 per launch shape of the sequence, and per pair of each route
+    by_shape = shape_times(kw, recorded, time_launch)
+    for key, v in by_shape.items():
+        print(f"adaptive launch shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} r={key[3]} "
+              f"{key[4]} x{v['n']}/sequence: kernel {v['kernel']:.4f} ms, bound {v['bound']:.4f} ms "
+              f"({v['by']}), wrapper host {v['host']:.4f} ms, wrapper {v['wrapper']:.4f} ms, "
+              f"plain {v['plain']:.4f} ms, grid_sample {v['library']:.4f} ms")
+    fields = ("kernel", "bound", "host", "wrapper", "plain", "library")
+    start = 0
+    for (name, _, _), n in zip(seq, counts):
+        pair = [by_shape[shape_key(a)] for a in recorded[start:start + n]]
+        start += n
+        if name in dict((m[0], m) for m in MEASURED):
+            print(f"adaptive K1 per pair {name}: {n} launches, " + ", ".join(
+                f"{f} {sum(v[f] for v in pair):.4f} ms" for f in fields))
+    total = {f: sum(v["n"] * v[f] for v in by_shape.values()) for f in fields}
+    total["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
+    ms = sum(pair_ms[HISTORY_PAIRS:]) / len(MEASURED)
+    print(f"adaptive sequence {W}x{H}, {len(TS)} midpoints, hosted: ms per measured pair "
+          + ", ".join(f"{m[0]} {t:.3f}" for m, t in zip(MEASURED, pair_ms[HISTORY_PAIRS:]))
+          + f" (mean {ms:.3f}); history pairs {', '.join(f'{t:.3f}' for t in pair_ms[:HISTORY_PAIRS])};"
+          f" {launches} K1 launches; max_memory_allocated {peak_mb:.1f} MB")
+    _phase("adaptive_timing", t0)
+    return path_numbers(launches, max_err, total, 1)
 
 
 def main() -> int:
@@ -683,14 +1061,7 @@ def main() -> int:
     # warm-up pair, recording every kernel launch's inputs for the checks
     real_warp = kw.warp_windowed
     recorded = []
-
-    def recording(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
-        recorded.append(dict(img=img.clone(), flow=flow.clone(),
-                             t=t.clone() if torch.is_tensor(t) else t, r=r, border=border,
-                             compute_dtype=compute_dtype))
-        return real_warp(img, flow, t, r, border, compute_dtype)
-
-    kw.warp_windowed = recording
+    kw.warp_windowed = _recording(kw, recorded)
     try:
         with origin_table_raises(kw):
             vfi.fused_stream_step(frames[0], frames[1], SCALE, TS)
@@ -770,12 +1141,7 @@ def main() -> int:
 
     # per-launch timing at the main path's shapes
     totals = dict(kernel=0.0, host=0.0, wrapper=0.0, plain=0.0, bound=0.0, library=0.0)
-    by_shape = {}
-    for a in recorded:
-        key = (tuple(a["img"].shape), a["img"].dtype, a["compute_dtype"], a["r"], a["border"])
-        if key not in by_shape:
-            by_shape[key] = dict(n=0, **time_launch(kw, a))
-        by_shape[key]["n"] += 1
+    by_shape = shape_times(kw, recorded, time_launch)
     for key, s in by_shape.items():
         print(f"launch shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} r={key[3]} x{s['n']}/pair: "
               f"kernel {s['kernel']:.4f} ms, bound {s['bound']:.4f} ms ({s['by']}), "
@@ -783,7 +1149,7 @@ def main() -> int:
               f"plain {s['plain']:.4f} ms, grid_sample {s['library']:.4f} ms")
         for k in totals:
             totals[k] += s["n"] * s[k]
-    bound_by = {s["by"] for s in by_shape.values()}
+    totals["by"] = "bytes" if {s["by"] for s in by_shape.values()} == {"bytes"} else "operations"
     largest = max(by_shape, key=lambda k: torch.Size(k[0]).numel())
     print(f"grid_sample at the largest launch shape {largest[0]}: {by_shape[largest]['library']:.4f} ms")
     t0 = _phase("timing", t0)
@@ -815,16 +1181,15 @@ def main() -> int:
           f"bound {totals['bound']:.4f} ms, wrapper host {totals['host']:.4f} ms, "
           f"wrapper {totals['wrapper']:.4f} ms, "
           f"plain {totals['plain']:.4f} ms, grid_sample {totals['library']:.4f} ms")
-    k2_line = train_phase(kw, rife_npz)
+    k1_flagship = path_numbers(launches, max_err, totals, PAIRS)
+    k1_train, k2_train = train_phase(kw, rife_npz)
+    k1_adaptive = adaptive_phase(kw)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
-    print(json.dumps({"kernels": [{
-        "name": "warp_windowed", "route": "cuda",
-        "source": "vfisr_tpu_torch/csrc/warp_windowed.cu",
-        "replaces": "vfisr_tpu/ops/pallas/warp.py:348",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": totals["kernel"], "plain_ms": totals["plain"], "bound_ms": totals["bound"],
-        "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-        "library_ms": totals["library"]}, k2_line]}))
+    # each kernel's launches counted on every path that runs it, and the
+    # device time of exactly those launches
+    print(json.dumps({"kernels": [
+        kernel_entry("warp_windowed", [k1_flagship, k1_train, k1_adaptive]),
+        kernel_entry("warp_windowed_grad", [k2_train])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -72,6 +72,27 @@ def windowed_reference(backend: bool = True):
         jax.clear_caches()
 
 
+def noisy_params(params, seed: int, scale: float = 0.05):
+    """(flat, tree): Flax params with seeded normal noise added to every
+    leaf, so that zero-init heads carry signal. flat ('/'-joined keys,
+    numpy) goes to the port's ``params_from_jax``; tree (jnp) to Flax."""
+    import jax.numpy as jnp
+
+    from vfisr_tpu.utils.checkpoint import _flatten
+
+    rng = np.random.default_rng(seed)
+    flat = {k: (np.asarray(v) + scale * rng.normal(size=v.shape)).astype(np.float32)
+            for k, v in _flatten(params).items()}
+    tree = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = jnp.asarray(v)
+    return flat, tree
+
+
 def rel_err(got, ref) -> float:
     """Largest |got - ref| over max(1, the largest |ref|): the tests'
     tolerance scale."""

@@ -6,11 +6,17 @@ host boundary.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def to_float(frame, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 [0, 255] -> float [0, 1], any leading dims; a numpy array goes
+    to a CPU tensor."""
+    return torch.as_tensor(frame).to(dtype) / 255.0
 
 
 def to_uint8(frame: torch.Tensor) -> torch.Tensor:
@@ -27,6 +33,13 @@ def to_batched(frame, device="cuda") -> torch.Tensor:
     if arr.ndim == 2:
         arr = arr[..., None]
     return (arr.float() / 255.0)[None]
+
+
+def from_batched(x: torch.Tensor) -> np.ndarray:
+    """1HWC/NHWC float [0, 1] -> HWC uint8 numpy (the first frame of a batch)."""
+    if x.ndim == 4:
+        x = x[0]
+    return to_uint8(x).cpu().numpy()
 
 
 def pad_to_multiple(x: torch.Tensor, multiple: int = 32
@@ -49,3 +62,8 @@ def pad_to_multiple(x: torch.Tensor, multiple: int = 32
 def unpad(x: torch.Tensor, original_h: int, original_w: int) -> torch.Tensor:
     """Crop NHWC/HWC back to the original spatial size."""
     return x[..., :original_h, :original_w, :]
+
+
+def get_default_timestamps(num_frames: int) -> List[float]:
+    """Evenly spaced timestamps in (0, 1): ``[(i+1)/(n+1)]``."""
+    return [(i + 1) / (num_frames + 1) for i in range(num_frames)]

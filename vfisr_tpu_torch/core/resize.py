@@ -3,8 +3,10 @@
 
 The tap tables are a copy of the reference's (that module imports JAX):
 half-pixel coordinate map ``src = (dst + 0.5) * in/out - 0.5``, Lanczos4 as
-8 normalised ``sinc(d) * sinc(d/4)`` taps, nearest as ``floor(dst*in/out)``,
-indices clamped into range. Each axis is applied as gathers of the tap rows
+8 normalised ``sinc(d) * sinc(d/4)`` taps, cubic as OpenCV's 4 taps with
+A = -0.75, nearest as ``floor(dst*in/out)``, area as each output pixel's
+fractional footprint when downscaling (and bilinear when upscaling, as
+OpenCV's INTER_AREA is), indices clamped into range. Each axis is applied as gathers of the tap rows
 weighted in f32 — the same formulation as the reference's CPU tap path.
 """
 
@@ -16,7 +18,18 @@ from typing import Tuple
 import numpy as np
 import torch
 
-_METHODS = ("nearest", "linear", "lanczos4")
+_METHODS = ("nearest", "linear", "cubic", "lanczos4", "area")
+
+
+def _kernel_cubic(d: np.ndarray) -> np.ndarray:
+    # OpenCV interpolateCubic: A = -0.75
+    A = -0.75
+    ad = np.abs(d)
+    return np.where(
+        ad <= 1.0,
+        ((A + 2.0) * ad - (A + 3.0)) * ad * ad + 1.0,
+        np.where(ad < 2.0, ((A * ad - 5.0 * A) * ad + 8.0 * A) * ad - 4.0 * A, 0.0),
+    )
 
 
 def _kernel_lanczos4(d: np.ndarray) -> np.ndarray:
@@ -32,13 +45,32 @@ def _tap_table(in_size: int, out_size: int, method: str) -> Tuple[np.ndarray, np
     if method == "nearest":
         idx = np.clip(np.floor(dst * scale).astype(np.int64), 0, in_size - 1)
         return idx[:, None], np.ones((out_size, 1), np.float32)
+    if method == "area" and scale > 1.0:
+        # downscale: the exact fractional coverage of each output pixel's
+        # footprint, normalised (OpenCV's INTER_AREA decimation)
+        k = int(np.ceil(scale)) + 1
+        idx = np.zeros((out_size, k), np.int64)
+        w = np.zeros((out_size, k), np.float64)
+        for i in range(out_size):
+            lo, hi = i * scale, (i + 1) * scale
+            first = int(np.floor(lo))
+            for j in range(k):
+                p = first + j
+                cov = min(hi, p + 1) - max(lo, p)
+                idx[i, j] = min(max(p, 0), in_size - 1)
+                w[i, j] = cov if (p < in_size and cov > 0) else 0.0
+            w[i] /= w[i].sum()
+        return idx, w.astype(np.float32)
     src = (dst + 0.5) * scale - 0.5
     base = np.floor(src).astype(np.int64)
     frac = src - base
-    if method == "linear":
+    if method in ("linear", "area"):  # INTER_AREA upscales about bilinearly
         offs = np.array([0, 1])
         d = frac[:, None] - offs[None, :]
         w = np.where(np.abs(d) < 1.0, 1.0 - np.abs(d), 0.0)
+    elif method == "cubic":
+        offs = np.array([-1, 0, 1, 2])
+        w = _kernel_cubic(frac[:, None] - offs[None, :])
     elif method == "lanczos4":
         offs = np.array([-3, -2, -1, 0, 1, 2, 3, 4])
         d = frac[:, None] - offs[None, :]
@@ -73,7 +105,7 @@ def _apply_axis(x: torch.Tensor, in_size: int, out_size: int, method: str,
 def resize(x: torch.Tensor, size: Tuple[int, int], method: str = "lanczos4") -> torch.Tensor:
     """Resize [..., H, W, C] to ``size`` = (out_h, out_w).
 
-    method: nearest, linear or lanczos4. uint8 in -> uint8 out (OpenCV
+    method: nearest, linear, cubic, lanczos4 or area. uint8 in -> uint8 out (OpenCV
     saturate rounding); float in -> float out of the same dtype.
     """
     out_h, out_w = size

@@ -15,16 +15,17 @@ NCHW. Module names mirror Flax's (``block0.Conv_0``), so
 from __future__ import annotations
 
 from dataclasses import dataclass
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vfisr_tpu_torch.core.frames import pad_to_multiple, unpad
+from vfisr_tpu_torch.core.resize import resize, scale_size
 from vfisr_tpu_torch.core.warp import backward_warp
-
-_REPO_ROOT = Path(__file__).resolve().parents[3]
+from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, upscale_frame
 
 
 @dataclass(frozen=True)
@@ -244,19 +245,29 @@ def shared_flow_apply(module: IFNet, x0: torch.Tensor, x1: torch.Tensor,
     return torch.stack([outs[t] for t in ts], dim=1).reshape(p * len(ts), h, w, 3)
 
 
-class RIFEModel:
-    """RIFE VFI model: the IFNet with its weights on a device."""
+class RIFEModel(BaseModel):
+    """RIFE VFI model: the IFNet with its weights on a device. VFI runs every
+    timestep in one IFNet call (timesteps folded into the batch); SR is
+    Lanczos4, as in the reference."""
 
     CONFIG = RIFEConfig()
+    NAME = "RIFE"
     WEIGHTS = "rife"  # weights/<WEIGHTS>.npz
+    PAD_MULTIPLE = 32
 
     def __init__(self, device: str = "cuda", seed: int = 0,
                  config: Optional[RIFEConfig] = None):
-        self.device = torch.device(device)
+        super().__init__(device)
         self.seed = seed
         if config is not None:
             self.CONFIG = config
         self.module: Optional[IFNet] = None
+
+    @property
+    def info(self) -> ModelInfo:
+        return ModelInfo(name=self.NAME, type="sota", supports_vfi=True, supports_sr=False,
+                         supports_joint=False, parameters=self.param_count(), requires_gpu=True,
+                         description="RIFE-style IFNet: real-time intermediate flow estimation")
 
     def param_count(self) -> Optional[int]:
         if self.module is None:
@@ -268,11 +279,11 @@ class RIFEModel:
         ``weights/<WEIGHTS>.npz`` when it exists and no path is given. The
         module is left in inference mode, without gradients."""
         from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax
+        from vfisr_tpu_torch.utils.paths import default_weights
 
         auto = weights_path is None
         if auto:
-            cand = _REPO_ROOT / "weights" / f"{self.WEIGHTS}.npz"
-            weights_path = str(cand) if cand.exists() else None
+            weights_path = default_weights(self.WEIGHTS)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
             module = IFNet(self.CONFIG)
@@ -290,6 +301,7 @@ class RIFEModel:
                               "using fresh init", stacklevel=2)
         self.module = module.to(device=self.device, dtype=self.CONFIG.dtype).eval()
         self.module.requires_grad_(False)
+        self._loaded = True
 
     def trainable(self) -> IFNet:
         """The loaded module in training mode, every parameter requiring a
@@ -298,10 +310,47 @@ class RIFEModel:
             raise RuntimeError("load() the model before training it")
         return self.module.train().requires_grad_(True)
 
+    @staticmethod
+    def _check_scale(scale) -> None:
+        if scale not in (None, 1.0):
+            raise NotImplementedError(
+                f"RIFEModel scale {scale}: only the trained pyramid (1.0) is ported "
+                "(ROADMAP queue 1, item 4)")
+
+    def interpolate_batch(self, x0: torch.Tensor, x1: torch.Tensor,
+                          timestamps: Tuple[float, ...], scale: float = 1.0) -> torch.Tensor:
+        """[N,H,W,3] pair -> [N,T,H,W,3]: one IFNet call on the N*T batch
+        (pair-major), padded to a multiple of 32. Only the trained pyramid
+        (scale 1.0) is ported; other scales raise."""
+        self._check_scale(scale)
+        pad = max(self.PAD_MULTIPLE, max(self.CONFIG.scales))
+        n, h, w, _ = x0.shape
+        t = len(timestamps)
+        x0p, _ = pad_to_multiple(x0, pad)
+        x1p, _ = pad_to_multiple(x1, pad)
+        ts = torch.tensor(timestamps, dtype=x0.dtype, device=x0.device).repeat(n)
+        with torch.no_grad():
+            merged = self.module(x0p.repeat_interleave(t, 0), x1p.repeat_interleave(t, 0), ts)[0]
+        return unpad(merged, h, w).reshape(n, t, h, w, 3)
+
+    def interpolate(self, frame0: np.ndarray, frame1: np.ndarray, num_frames: int = 3,
+                    timestamps=None, scale: Optional[float] = None) -> List[np.ndarray]:
+        """The base adapter with the reference's ``scale`` knob (1.0 only)."""
+        self._check_scale(scale)
+        return super().interpolate(frame0, frame1, num_frames, timestamps)
+
+    def upscale_batch(self, x: torch.Tensor, scale: float = 1.333) -> torch.Tensor:
+        h, w = x.shape[-3:-1]
+        return resize(x, scale_size(h, w, scale), "lanczos4")
+
+    def upscale(self, frame: np.ndarray, scale: float = 1.333) -> np.ndarray:
+        return upscale_frame(frame, scale, "lanczos4", self.device)
+
 
 class RIFELiteModel(RIFEModel):
     """The lite config (JAX ``rife.py:358,543-547``): three levels, ~4.5M
     parameters, weights/rife_lite.npz."""
 
     CONFIG = RIFEConfig(scales=(4, 2, 1), channels=(176, 112, 80), num_convs=8)
+    NAME = "RIFE-Lite"
     WEIGHTS = "rife_lite"

@@ -26,8 +26,9 @@ import torch
 from vfisr_tpu_torch.core.color import rgb_to_gray
 from vfisr_tpu_torch.core.frames import pad_to_multiple, to_batched, to_uint8, unpad
 from vfisr_tpu_torch.core.resize import resize, scale_size
-from vfisr_tpu_torch.models.base import InferenceResult, ModelInfo, device_peak_mb
-from vfisr_tpu_torch.models.novel.adaptive_pipeline import _HUD_RES, scene_cut_signals
+from vfisr_tpu_torch.models.base import BaseModel, InferenceResult, ModelInfo, device_peak_mb
+from vfisr_tpu_torch.models.novel.adaptive_pipeline import (_HUD_RES, _push_history as push_history,
+                                                            scene_cut_signals)
 from vfisr_tpu_torch.models.sota.rife import IFNet, RIFEConfig, RIFEModel, shared_flow_apply
 from vfisr_tpu_torch.ops.conv import laplacian
 from vfisr_tpu_torch.ops.flow import farneback_flow
@@ -100,14 +101,6 @@ def analyze_small(f0, f1, history, history_count, cfg: FlagshipConfig) -> dict:
     }
 
 
-def push_history(history, count, frame):
-    """Append the 320x180 gray of ``frame`` to the HUD ring (shift left)."""
-    g = rgb_to_gray(frame * 255.0)
-    small = resize(g[..., None], _HUD_RES, "linear")[..., 0]
-    return (torch.cat([history[:, 1:], small[:, None]], dim=1),
-            torch.clamp(count + 1, max=history.shape[1]))
-
-
 def init_history(n: int, device="cuda"):
     return (torch.zeros((n, 10, *_HUD_RES), dtype=torch.float32, device=device),
             torch.zeros((n,), dtype=torch.int32, device=device))
@@ -159,16 +152,15 @@ def make_flagship_step(module: IFNet, cfg: FlagshipConfig = FlagshipConfig()):
     return step
 
 
-class FlagshipVFI:
+class FlagshipVFI(BaseModel):
     """The fused deployment pipeline: RIFE deploy config (bf16, warp radii
     level (2,2) and final (3,4), bf16 warp windows, shared-flow timesteps)
     + router analysis + scene/HUD composite + SR, with the HUD history
     carried across calls."""
 
     def __init__(self, device: str = "cuda", config: FlagshipConfig = None):
-        self.device = torch.device(device)
+        super().__init__(device)
         self.base_config = config or FlagshipConfig()
-        self._loaded = False
         self._rife = None
         self._module = None
         self._steps = {}  # (in_hw, out_hw) -> step
@@ -203,10 +195,6 @@ class FlagshipVFI:
         self._rife.load(weights_path)
         self._module = self._rife.module
         self._loaded = True
-
-    def ensure_loaded(self):
-        if not self._loaded:
-            self.load()
 
     def _step_for(self, in_hw, out_hw):
         key = (in_hw, out_hw)
@@ -250,7 +238,7 @@ class FlagshipVFI:
         return InferenceResult(
             frames=frames,
             inference_time_ms=(time.perf_counter() - t0) * 1000,
-            vram_peak_mb=device_peak_mb(self.device if self.device.type == "cuda" else None),
+            vram_peak_mb=device_peak_mb(self.device),
             model_used=self.info.name,
             extra_info={
                 "is_scene_change": bool(sig["is_scene_change"][0]),
