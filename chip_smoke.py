@@ -72,13 +72,42 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    uint8), and the times: ms per pair and route, the analysis, RIFE and
    VFIMamba alone (the selective scan's share of VFIMamba), peak memory,
    VFIMamba's decoder conv with and without cuDNN, and K1 per launch shape
-   as in step 7.
+   as in step 7;
+10. loads SAFA through the registry, get_model("safa", load=True)
+   (weights/safa.npz, c 176, 8 decoder blocks; every parameter checked
+   against the file; TF32 off after load), and runs three 1920x1080 pairs of
+   step 9's scene (static, 3 px pan, 8 px pan) through
+   SAFAModel.interpolate_batch with 3 midpoints: 12 tiles of 360x480 with
+   48 px of context, each a batch-3 forward whose 6 feature warps
+   ([3,114,144,176], K1 in channel groups) and 2 frame warps
+   ([3,456,576,3]) go through K1: 96 launches per pair, counted with
+   ``window_origins`` raising. Checks: finite [0, 1] frames; K1 against its
+   twin and its origins at all 96 launches of a pair; the feature launches'
+   plans take channel groups; the pair with the kernel against it with the
+   plain twin (deterministic cuDNN, 1e-5); joint_process at 1.333 once (5
+   frames at 2560x1440 uint8). Prints ms per pair, ms per tile forward and
+   its conv FLOP, peak memory over resident, each distinct conv shape of a
+   tile with cuDNN's heuristic plan and with cuDNN off, K1 per launch shape
+   as in step 7, and the midpoints' PSNR against the scene's true frames
+   and against frame duplication (printed only);
+11. SPAN: get_model("span", load=True) (x2, weights/span_x2.npz, every
+   parameter checked) upscales 4 frames of the scene 1920x1080 -> 2560x1440
+   (ms, PSNR against Lanczos4, its conv shapes as in step 10);
+   SPANModel(scale=4) once from 960x540; get_model("rife_span",
+   load=True).process_pair once on a 1080p pair; and
+   AdaptivePipeline(sr_model_name="span") runs interpolate_batch and
+   upscale_batch on one pair (its SR equal to SPAN's);
+12. holds K1 in channel groups against its twin at C in GROUPED_C, f32 and
+   bf16 windows, both borders, at SAFA's feature shape (in step 6's phase),
+   and shows that every K1 launch of steps 4, 8 and 9 keeps the whole-C
+   layout (one channel group).
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
-it (K1: the flagship pairs, the train steps and the adaptive sequence; K2:
-the train steps) and the device time, bound, plain-twin and grid_sample time
-of exactly those launches. The last line is {"ok": true, "device": {...}}.
+it (K1: the flagship pairs, the train steps, the adaptive sequence and the
+SAFA pairs; K2: the train steps) and the device time, bound, plain-twin and
+grid_sample time of exactly those launches. The last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -121,6 +150,13 @@ MEASURED = (("static", 15, 15), ("pan 3 px", 15, 18), ("pan 8 px", 18, 26), ("cu
 # and two at full res; batch 3)
 K1_PER_ROUTE = {"rife": 17, "vfimamba": 19, "scene_change": 13}
 K1_MASKED = 23  # both experts run on every pair
+# the SAFA phase: 1920x1080 pairs of the adaptive phase's scene through
+# SAFAModel.interpolate_batch (12 tiles of 360x480 + 48 px, batch 3); each
+# tile's forward warps the features 6 times ([3,114,144,176]) and the frames
+# twice ([3,456,576,3])
+SAFA_PAIRS = (("static", 15, 15), ("pan 3 px", 15, 18), ("pan 8 px", 18, 26))
+K1_PER_SAFA_PAIR = 96
+GROUPED_C = (10, 16, 33, 176)  # K1 past the channels one window holds
 
 
 def require(ok: bool, what: str) -> None:
@@ -608,6 +644,7 @@ def train_phase(kw, rife_npz: Path) -> tuple:
     require(k1 == K1_PER_STEP and len(rec1) == k1, f"{k1} warp launches in a train step")
     require(k2 == K2_PER_STEP and len(rec2) == k2, f"{k2} warp-gradient launches in a train step")
     require(loss == loss and abs(loss) < float("inf"), "finite loss")
+    require_whole_c(kw, "train step", rec1)
     t0 = _phase("train_record", t0)
 
     # the kernels' origins, and the kernels against their plain twins, at
@@ -834,6 +871,7 @@ def adaptive_phase(kw) -> dict:
         launches = kw.launches
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     require(len(recorded) == launches == sum(counts), f"{launches} K1 launches in the sequence")
+    require_whole_c(kw, "adaptive", recorded)
     t0 = _phase("adaptive_main", t0)
 
     # routes: each pair's equals bin_winner of its measured motion, and its
@@ -973,7 +1011,7 @@ def adaptive_phase(kw) -> dict:
           f"selective_scan {scan_ms:.3f} ms in {len(scans) // 2} calls ({100 * scan_ms / fwd_ms:.1f}%),"
           f" {over_resident(resident)}")
     # why VFIMamba's decoder conv runs without cuDNN
-    # (vfimamba.py::_without_cudnn): the conv at its shape each way
+    # (models/base.py::without_cudnn): the conv at its shape each way
     conv = model._vfimamba.module.Conv_3
     feat = torch.randn((len(TS), conv.in_channels, -(-H // 32) * 4, -(-W // 32) * 4), device=dev)
     with torch.no_grad():
@@ -1015,6 +1053,362 @@ def adaptive_phase(kw) -> dict:
           f" {launches} K1 launches; max_memory_allocated {peak_mb:.1f} MB")
     _phase("adaptive_timing", t0)
     return path_numbers(launches, max_err, total, 1)
+
+
+def require_whole_c(kw, label: str, recs: list) -> None:
+    """Every K1 launch of recs takes the whole-C layout (one channel
+    group): the kernel's instantiation without channel groups."""
+    plans = {shape_key(a): kw.plan(a["img"], a["r"], a["compute_dtype"]) for a in recs}
+    require(all(p is not None and p["grouped"] == 0 and p["groups"] == 1 for p in plans.values()),
+            f"{label}: every K1 launch takes the whole-C layout")
+    print(f"{label}: all {len(recs)} K1 launches ({len(plans)} shapes) take the whole-C layout "
+          f"(one channel group)")
+
+
+def grouped_cases(device) -> list:
+    """K1 past the channels one window holds: C in GROUPED_C at the shape of
+    SAFA's feature warps, f32 and bf16 windows, both borders; flows as
+    SAFA's (clamped to +-8) plus noise past the radius."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    n, h, w = 3, 114, 144
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    base = torch.stack([6.0 * torch.sin(xx / 17.0 + yy / 23.0), 3.0 * torch.cos(yy / 9.0)], -1)
+    cases = []
+    for c in GROUPED_C:
+        for dt in (torch.float32, torch.bfloat16):
+            for border in ("replicate", "constant"):
+                flow = torch.clamp(base + 3.0 * torch.randn((n, h, w, 2), generator=gen), -8, 8)
+                cases.append(dict(name=f"grouped C={c}", img=torch.rand((n, h, w, c), generator=gen)
+                                  .to(device), flow=flow.to(device), t=1.0, r=8, border=border,
+                                  compute_dtype=dt))
+    return cases
+
+
+def conv_calls(module, run) -> list:
+    """(name, conv, input shape) of every Conv2d call while run() runs,
+    in call order (forward hooks)."""
+    calls, hooks = [], []
+    for name, m in module.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out, name=name: calls.append((name, mod, tuple(inp[0].shape)))))
+    try:
+        run()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return calls
+
+
+def conv_flop(conv, shape) -> int:
+    """Multiply-adds x 2 of one Conv2d call on an input of shape."""
+    n, _, h, w = shape
+    ho = (h + 2 * conv.padding[0] - conv.kernel_size[0]) // conv.stride[0] + 1
+    wo = (w + 2 * conv.padding[1] - conv.kernel_size[1]) // conv.stride[1] + 1
+    return 2 * n * ho * wo * conv.out_channels * conv.in_channels * conv.kernel_size[0] * \
+        conv.kernel_size[1]
+
+
+def time_convs(label: str, calls: list) -> dict:
+    """Each distinct conv shape of calls, timed with cuDNN's heuristic plan
+    and with cuDNN off (PyTorch's own convolution), with the peak memory of
+    each over what was resident; f32, TF32 off. Returns {name: (cudnn ms,
+    own ms)} for the first call of each shape."""
+    seen, out = {}, {}
+    dev = torch.device("cuda")
+    for name, conv, shape in calls:
+        key = (conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, shape)
+        if key in seen:
+            seen[key].append(name)
+            continue
+        seen[key] = [name]
+        feat = torch.rand(shape, device=dev)
+        res = []
+        with torch.no_grad():
+            for cudnn_on in (True, False):
+                torch.backends.cudnn.enabled = cudnn_on
+                try:
+                    conv(feat)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    resident = torch.cuda.memory_allocated()
+                    ms = time_ms(lambda: conv(feat), 3, warmup=0)
+                    peak = (torch.cuda.max_memory_allocated() - resident) / 1e6
+                finally:
+                    torch.backends.cudnn.enabled = True
+                res.append((ms, peak))
+        del feat
+        out[name] = (res[0][0], res[1][0])
+        gflop = conv_flop(conv, shape) / 1e9
+        print(f"{label} conv {name} {tuple(shape)} {conv.in_channels}->{conv.out_channels} "
+              f"k{conv.kernel_size[0]} s{conv.stride[0]}, f32, {gflop:.2f} GFLOP: cuDNN "
+              f"{res[0][0]:.3f} ms (peak {res[0][1]:.1f} MB over resident), cuDNN off "
+              f"{res[1][0]:.3f} ms (peak {res[1][1]:.1f} MB); f32 bound "
+              f"{gflop / F32_FLOP_PER_S * 1e12:.3f} ms")
+    for key, names in seen.items():
+        if len(names) > 1:
+            print(f"{label} conv shape of {names[0]} also: {', '.join(names[1:])}")
+    return out
+
+
+def safa_phase(kw) -> dict:
+    """Step 10 of the module docstring. Returns K1's numbers over the
+    counted pairs (``path_numbers``)."""
+    from vfisr_tpu_torch.core.frames import to_uint8
+    from vfisr_tpu_torch.core.resize import resize, scale_size
+    from vfisr_tpu_torch.models.registry import get_model
+    from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    npz = ROOT / "weights" / "safa.npz"
+    require(npz.is_file(), f"{npz} present")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    model = get_model("safa", load=True)
+    require(model.device.type == "cuda", "SAFA on the card")
+    require(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32),
+            "TF32 off after SAFAModel.load")
+    state, want = model.module.state_dict(), params_from_jax(load_npz(str(npz)))
+    require(set(state) == set(want) and all(torch.equal(state[k].cpu(), want[k]) for k in want),
+            f"every parameter of {npz.name} loaded")
+    require(model.module.c == 176 and model.module.num_dec_blocks == 8, "full-width SAFA")
+    print(f"safa: get_model('safa', load=True): {model.info.parameters} parameters, c "
+          f"{model.module.c}, {model.module.num_dec_blocks} decoder blocks, tiles "
+          f"{model.TILE_HW} + {model.OVERLAP} px, budget {model.tile_px_budget} px")
+    u8 = {x: scene_frame(x, dev) for _, a, b in SAFA_PAIRS for x in (a, b)}
+
+    def batched(x):
+        return u8[x].float()[None] / 255.0
+
+    t0 = _phase("safa_load", t0)
+
+    # one pair recorded (warm-up): every K1 launch's inputs
+    recorded = []
+    real_warp = kw.warp_windowed
+    kw.warp_windowed = _recording(kw, recorded)
+    try:
+        with origin_table_raises(kw):
+            model.interpolate_batch(batched(SAFA_PAIRS[2][1]), batched(SAFA_PAIRS[2][2]), TS)
+            torch.cuda.synchronize()
+    finally:
+        kw.warp_windowed = real_warp
+    require(len(recorded) == K1_PER_SAFA_PAIR, f"{len(recorded)} K1 launches in a SAFA pair")
+    t0 = _phase("safa_record", t0)
+
+    # the path, counted and timed
+    pair_ms, outs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    with origin_table_raises(kw):
+        kw.launches = 0
+        for _, a, b in SAFA_PAIRS:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs.append(model.interpolate_batch(batched(a), batched(b), TS))
+            end.record()
+            end.synchronize()
+            pair_ms.append(start.elapsed_time(end))
+        launches = kw.launches
+    peak_mb = (torch.cuda.max_memory_allocated() - resident) / 1e6
+    require(launches == K1_PER_SAFA_PAIR * len(SAFA_PAIRS),
+            f"{launches} K1 launches in {len(SAFA_PAIRS)} SAFA pairs")
+    t0 = _phase("safa_main", t0)
+
+    # outputs: finite [0, 1] frames of the input's size; midpoint PSNR
+    # against the scene's true in-between frames and against duplication
+    # (printed only: the weights' quality is measured on their own data)
+    for (name, a, b), out in zip(SAFA_PAIRS, outs):
+        # the net's 2x frames are clipped to [0, 1]; Lanczos4 back to the
+        # input's size may overshoot that a little, as in the reference
+        require(tuple(out.shape) == (1, len(TS), H, W, 3) and bool(torch.isfinite(out).all())
+                and float(out.min()) >= -0.25 and float(out.max()) <= 1.25,
+                f"SAFA pair {name} output: {tuple(out.shape)}, {float(out.min())} to "
+                f"{float(out.max())}")
+        line = [f"range {float(out.min()):.4f} to {float(out.max()):.4f}"]
+        for k, t in enumerate(TS):
+            truth = scene_frame(a + t * (b - a), dev)
+            line.append(f"t={t} {psnr(to_uint8(out[0, k]), truth):.3f} dB "
+                        f"(duplicate {psnr(u8[a], truth):.3f})")
+        print(f"safa pair {name}: midpoint PSNR against the true frame " + ", ".join(line))
+
+    # K1 against its twin and the kernels' origins at every launch of the
+    # recorded pair; the feature launches take channel groups
+    max_err = 0.0
+    for j, a in enumerate(recorded):
+        check_origins(kw, f"safa launch {j}", a)
+        max_err = max(max_err, check_warp(kw, f"safa launch {j}", a))
+    for key in {shape_key(a): a for a in recorded}.values():
+        p = kw.plan(key["img"], key["r"], key["compute_dtype"])
+        print(f"safa K1 plan {_label(key)}: {p}")
+        require(p["grouped"] == (key["img"].shape[-1] > 3), f"SAFA plan {_label(key)}")
+    # the pair with the kernel against the pair with the plain twin
+    # (deterministic cuDNN for both)
+    x0, x1 = batched(SAFA_PAIRS[2][1]), batched(SAFA_PAIRS[2][2])
+
+    def plain_warp(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
+        return kw.warp_windowed_plain(img, flow, t, r, border, compute_dtype)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        out_k = model.interpolate_batch(x0, x1, TS)
+        kw.warp_windowed = plain_warp
+        try:
+            out_p = model.interpolate_batch(x0, x1, TS)
+        finally:
+            kw.warp_windowed = real_warp
+    finally:
+        torch.backends.cudnn.deterministic = False
+    d_twin = (out_k - out_p).abs().max().item()
+    print(f"safa pair with kernel vs with plain twin (deterministic cuDNN): max {d_twin:.3e} "
+          f"(tolerance 1e-5)")
+    require(d_twin <= 1e-5, "SAFA pair, kernel vs twin")
+    t0 = _phase("safa_checks", t0)
+
+    # the joint entry point once: 5 frames at 2560x1440 uint8
+    out_hw = scale_size(H, W, SCALE)
+    start = time.perf_counter()
+    frames = model.joint_process(u8[SAFA_PAIRS[2][1]].cpu().numpy(),
+                                 u8[SAFA_PAIRS[2][2]].cpu().numpy(), 3, SCALE)
+    jp_ms = (time.perf_counter() - start) * 1e3
+    require(len(frames) == 5 and all(str(f.dtype) == "uint8" and f.shape == (*out_hw, 3)
+                                     for f in frames), "SAFA joint_process frames")
+    end_ref = to_uint8(resize(x0, out_hw, "lanczos4"))[0].cpu().numpy()
+    print(f"safa joint_process (pan 8 px, 5 frames {frames[0].shape} {frames[0].dtype}, scale "
+          f"{SCALE:.4f}): {jp_ms:.3f} ms host clock; endpoint t=0 vs Lanczos4 of x0: "
+          f"{psnr(torch.from_numpy(frames[0]), torch.from_numpy(end_ref)):.3f} dB")
+    t0 = _phase("safa_entry", t0)
+
+    # where a pair's time goes: one tile's forward (batch 3), its convs
+    th, tw = model.TILE_HW
+    tile = (1, th + 2 * model.OVERLAP, tw + 2 * model.OVERLAP)
+    a3 = x0[:, :tile[1], :tile[2]].repeat_interleave(len(TS), 0).contiguous()
+    b3 = x1[:, :tile[1], :tile[2]].repeat_interleave(len(TS), 0).contiguous()
+    ts3 = torch.tensor(TS, device=dev)
+    model.net(a3, b3, ts3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    tile_ms = time_ms(lambda: model.net(a3, b3, ts3), 3, warmup=0)
+    tile_peak = (torch.cuda.max_memory_allocated() - resident) / 1e6
+    calls = conv_calls(model.module, lambda: model.net(a3, b3, ts3))
+    tile_flop = sum(conv_flop(c, s) for _, c, s in calls)
+    n_tiles = -(-H // th) * -(-W // tw)
+    print(f"safa tile forward {tuple(a3.shape)} x2 frames, batch {len(TS)}: {tile_ms:.3f} ms, peak "
+          f"{tile_peak:.1f} MB over {resident / 1e6:.1f} MB resident; its {len(calls)} convs "
+          f"{tile_flop / 1e12:.4f} TFLOP (f32 bound {tile_flop / F32_FLOP_PER_S * 1e3:.3f} ms); "
+          f"{n_tiles} tiles per pair: {n_tiles * tile_flop / 1e12:.4f} TFLOP, f32 bound "
+          f"{n_tiles * tile_flop / F32_FLOP_PER_S * 1e3:.3f} ms")
+    time_convs("safa", calls)
+    del a3, b3
+    t0 = _phase("safa_breakdown", t0)
+
+    # K1 per launch shape of a pair
+    by_shape = shape_times(kw, recorded, time_launch)
+    for key, v in by_shape.items():
+        print(f"safa launch shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} r={key[3]} "
+              f"{key[4]} x{v['n']}/pair: kernel {v['kernel']:.4f} ms, bound {v['bound']:.4f} ms "
+              f"({v['by']}), wrapper host {v['host']:.4f} ms, wrapper {v['wrapper']:.4f} ms, "
+              f"plain {v['plain']:.4f} ms, grid_sample {v['library']:.4f} ms")
+    fields = ("kernel", "bound", "host", "wrapper", "plain", "library")
+    total = {f: sum(v["n"] * v[f] for v in by_shape.values()) for f in fields}
+    total["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
+    print(f"safa K1 per pair: {K1_PER_SAFA_PAIR} launches, " + ", ".join(
+        f"{f} {total[f]:.4f} ms" for f in fields))
+    print(f"safa {W}x{H} pairs, {len(TS)} midpoints (interpolate_batch, {n_tiles} tiles): ms per "
+          f"pair " + ", ".join(f"{p[0]} {t:.3f}" for p, t in zip(SAFA_PAIRS, pair_ms))
+          + f" (mean {sum(pair_ms) / len(pair_ms):.3f}); peak {peak_mb:.1f} MB over resident; "
+          f"{launches} K1 launches")
+    _phase("safa_timing", t0)
+    return path_numbers(launches, max_err, total, len(SAFA_PAIRS))
+
+
+def span_phase(kw) -> None:
+    """Step 11 of the module docstring."""
+    from vfisr_tpu_torch.core.resize import resize, scale_size
+    from vfisr_tpu_torch.models.novel.adaptive_pipeline import AdaptivePipeline
+    from vfisr_tpu_torch.models.registry import get_model
+    from vfisr_tpu_torch.models.sota.span import SPANModel
+    from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    span = get_model("span", load=True)
+    require(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32),
+            "TF32 off after SPANModel.load")
+    npz = ROOT / "weights" / "span_x2.npz"
+    state, want = span.module.state_dict(), params_from_jax(load_npz(str(npz)))
+    require(span.scale == 2 and set(state) == set(want)
+            and all(torch.equal(state[k].cpu(), want[k]) for k in want),
+            f"every parameter of {npz.name} loaded")
+    out_hw = scale_size(H, W, SCALE)
+    four = torch.stack([scene_frame(x, dev) for x in (15, 18, 21, 26)]).float() / 255.0
+    up = span.upscale_batch(four, SCALE)
+    require(tuple(up.shape) == (4, *out_hw, 3) and bool(torch.isfinite(up).all())
+            and float(up.min()) >= 0.0 and float(up.max()) <= 1.0, "SPAN x2 output")
+    lanczos = resize(four, out_hw, "lanczos4").clamp(0.0, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ms = time_ms(lambda: span.upscale_batch(four, SCALE), 3)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 1e6
+    net_ms = time_ms(lambda: span.module(four), 3)
+    calls = conv_calls(span.module, lambda: span.module(four))
+    flop = sum(conv_flop(c, s) for _, c, s in calls)
+    print(f"span x2: 4 frames {W}x{H} -> {out_hw[1]}x{out_hw[0]} (upscale_batch: net, Lanczos4, "
+          f"clip): {ms:.3f} ms ({ms / 4:.3f} per frame), the net alone {net_ms:.3f} ms, peak "
+          f"{peak:.1f} MB over resident; convs {flop / 1e12:.4f} TFLOP (f32 bound "
+          f"{flop / F32_FLOP_PER_S * 1e3:.3f} ms); PSNR against Lanczos4 "
+          f"{psnr(up * 255.0, lanczos * 255.0):.3f} dB")
+    time_convs("span x2", calls)
+    t0 = _phase("span_x2", t0)
+
+    x4 = SPANModel(scale=4, device="cuda")
+    x4.load()
+    small = resize(four[:1], (H // 2, W // 2), "area")
+    up4 = x4.upscale_batch(small, H * SCALE / (H // 2))
+    require(tuple(up4.shape) == (1, *out_hw, 3) and bool(torch.isfinite(up4).all()),
+            "SPAN x4 output")
+    ms4 = time_ms(lambda: x4.upscale_batch(small, H * SCALE / (H // 2)), 3)
+    print(f"span x4: 1 frame {W // 2}x{H // 2} -> {out_hw[1]}x{out_hw[0]}: {ms4:.3f} ms; PSNR "
+          f"against the 1440p Lanczos4 of the full frame "
+          f"{psnr(up4[0] * 255.0, lanczos[0] * 255.0):.3f} dB")
+    del x4, up4
+    t0 = _phase("span_x4", t0)
+
+    u8 = {x: scene_frame(x, dev).cpu().numpy() for x in (18, 26)}
+    rs = get_model("rife_span", load=True)
+    res = rs.process_pair(u8[18], u8[26], 3, SCALE)
+    require(len(res.frames) == 5 and all(str(f.dtype) == "uint8" and f.shape == (*out_hw, 3)
+                                         for f in res.frames), "rife_span process_pair frames")
+    print(f"rife_span process_pair (pan 8 px, 5 frames {res.frames[0].shape}): "
+          f"{res.inference_time_ms:.3f} ms host clock (VFI {res.extra_info['vfi_time_ms']:.3f}, "
+          f"SR {res.extra_info['sr_time_ms']:.3f}), model {res.model_used}")
+    del rs
+    t0 = _phase("rife_span", t0)
+
+    files = {"rife_weights": ROOT / "weights" / "rife.npz",
+             "vfimamba_weights": ROOT / "weights" / "vfimamba.npz",
+             "gate_path": ROOT / "weights" / "router_gate.json"}
+    pipe = AdaptivePipeline(sr_model_name="span", **{k: str(p) for k, p in files.items()})
+    pipe.load()
+    require(isinstance(pipe._sr, SPANModel) and pipe._sr.scale == 2, "adaptive SPAN SR loaded")
+    x0, x1 = (torch.from_numpy(u8[x]).to(dev).float()[None] / 255.0 for x in (18, 26))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    mids = pipe.interpolate_batch(x0, x1, TS)
+    ups = pipe.upscale_batch(torch.cat([x0, mids[0]]), SCALE)
+    end.record()
+    end.synchronize()
+    require(tuple(ups.shape) == (4, *out_hw, 3) and bool(torch.isfinite(ups).all())
+            and (ups - span.upscale_batch(torch.cat([x0, mids[0]]), SCALE)).abs().max() <= 1e-5,
+            "adaptive SPAN upscale_batch is SPAN's")
+    print(f"adaptive (sr_model_name='span') pan 8 px: interpolate_batch + upscale_batch of 4 "
+          f"frames to {out_hw[1]}x{out_hw[0]}: {start.elapsed_time(end):.3f} ms (first call), route "
+          f"{pipe.get_stats()}")
+    _phase("adaptive_span", t0)
 
 
 def main() -> int:
@@ -1131,6 +1525,14 @@ def main() -> int:
     for a in synthetic_cases(dev):
         check_origins(kw, a["name"], a)
         max_err = max(max_err, check_warp(kw, a["name"], a))
+    require_whole_c(kw, "flagship", recorded)
+    # channel groups: K1 at C in GROUPED_C (an f32 image at r = 8 takes
+    # groups past 9 channels)
+    for a in grouped_cases(dev):
+        p = kw.plan(a["img"], a["r"], a["compute_dtype"])
+        require(p is not None and p["grouped"] == 1, f"plan of {_label(a)}: {p}")
+        print(f"plan {_label(a)}: {p}")
+        max_err = max(max_err, check_warp(kw, a["name"], a))
     # the origin's edge cases: origins, K1 and K2 (K2's line takes its
     # max_abs_err from the training's launches; these only gate)
     for a in adversarial_cases(dev):
@@ -1184,11 +1586,13 @@ def main() -> int:
     k1_flagship = path_numbers(launches, max_err, totals, PAIRS)
     k1_train, k2_train = train_phase(kw, rife_npz)
     k1_adaptive = adaptive_phase(kw)
+    k1_safa = safa_phase(kw)
+    span_phase(kw)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
     print(json.dumps({"kernels": [
-        kernel_entry("warp_windowed", [k1_flagship, k1_train, k1_adaptive]),
+        kernel_entry("warp_windowed", [k1_flagship, k1_train, k1_adaptive, k1_safa]),
         kernel_entry("warp_windowed_grad", [k2_train])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -18,7 +18,6 @@ no fold and are untouched.
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import numpy as np
 import pytest
@@ -57,6 +56,15 @@ def windowed_reference(backend: bool = True):
         return orig_kernel(packed_ref, *args, fold_odd_row=fold_odd_row,
                            bitcast_roll=bitcast_roll, **kw)
 
+    def interpreted(*args, **kw):
+        # interpret=True whether it comes by keyword or, as the reference's
+        # channel chunking passes it, as the seventh positional argument
+        if len(args) > 6:
+            args = args[:6] + (True,) + args[7:]
+        else:
+            kw["interpret"] = True
+        return orig_warp(*args, **kw)
+
     # jit caches hold traces made with and without the patch: clear them
     # on the way in and out, so neither side sees the other's
     jax.clear_caches()
@@ -64,7 +72,7 @@ def windowed_reference(backend: bool = True):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(pw, "_warp_kernel", kernel)
             if backend:
-                mp.setattr(pw, "warp_windowed", functools.partial(orig_warp, interpret=True))
+                mp.setattr(pw, "warp_windowed", interpreted)
                 mp.setattr(jcore, "default_warp_backend", lambda: "pallas")
                 mp.setattr(tcore, "default_warp_backend", lambda device: "windowed")
             yield orig_warp

@@ -192,3 +192,76 @@ def test_launch_takes_t_as_number_or_tensor():
         assert _err(out, ref) <= TOL[torch.float32]
         assert _err(cg, ref_cg) <= TOL[torch.float32]
         assert _err(gflow, ref_gflow) <= TOL[torch.float32]
+
+
+# K1 past the channels one window holds: channel groups. (n, h, w) of
+# SAFA's feature warps at a 1080p tile (114x144) and a ragged 3-tile-wide
+# image; flows as SAFA's, clamped to +-8, plus noise past the radius
+GROUPED_C = (10, 16, 33, 176)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", GROUPED_C)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("border", ["replicate", "constant"])
+@pytest.mark.parametrize("n,h,w", [(3, 114, 144), (1, 70, 530)])
+def test_warp_kernel_channel_groups_match_plain(n, h, w, border, dt, c):
+    """Grouped K1 against its twin: bit for bit with f32 windows, 2/255
+    with bf16 ones (the twin takes any C)."""
+    _needs_card()
+    rng = np.random.default_rng(c)
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda()
+    flow = torch.from_numpy(np.clip(smooth_flow(rng, n, h, w, 6.0, 3.0), -8, 8)).cuda()
+    pl = tw.plan(img, 8, dt)
+    assert pl is not None and pl["groups"] * pl["cg"] >= c
+    if dt == torch.float32 or c > 17:
+        assert pl["grouped"] == 1, pl
+    before = tw.launches
+    out = tw.warp_windowed(img, flow, 1.0, 8, border, dt)
+    ref = tw.warp_windowed_plain(img, flow, 1.0, 8, border, dt)
+    torch.cuda.synchronize()
+    assert tw.launches == before + 1
+    if dt == torch.float32:
+        assert torch.equal(out, ref), (out - ref).abs().max().item()
+    else:
+        assert _err(out, ref) <= TOL[dt]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 176])
+def test_warp_kernel_channel_groups_unaligned_image(c):
+    """A contiguous view 4 bytes past a 16-byte boundary: the groups copy
+    element by element instead of in 16-byte chunks, with the same bits."""
+    _needs_card()
+    rng = np.random.default_rng(3)
+    n, h, w = 2, 64, 144
+    base = torch.from_numpy(rng.random(n * h * w * c + 1, np.float32)).cuda()
+    img = base[1:].view(n, h, w, c)
+    assert img.is_contiguous() and img.data_ptr() % 16 == 4
+    flow = torch.from_numpy(smooth_flow(rng, n, h, w, 5.0, 2.0)).cuda()
+    out = tw.warp_windowed(img, flow, 0.5, 8, "replicate", torch.float32)
+    ref = tw.warp_windowed_plain(img, flow, 0.5, 8, "replicate", torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_plans_of_the_paths_and_k2_refusal():
+    """The flagship's, training's and adaptive path's K1 launches keep the
+    whole-C layout; K1 at 176 channels takes groups; K2 refuses a window
+    it cannot hold whole, before it launches."""
+    _needs_card()
+    f32, bf = torch.float32, torch.bfloat16
+    for shape, dt, r, cd in [((2, 1088, 1920, 3), bf, (3, 4), bf), ((1, 1080, 1920, 5), f32, 8, f32),
+                             ((6, 1088, 1920, 3), f32, (4, 6), bf), ((3, 1088, 1920, 3), f32, 8, f32),
+                             ((48, 192, 192, 4), f32, 2, f32), ((3, 456, 576, 3), f32, 8, f32)]:
+        img = torch.empty(shape, dtype=dt, device="cuda")
+        pl = tw.plan(img, r, cd)
+        assert pl is not None and pl["grouped"] == 0 and pl["groups"] == 1, (shape, pl)
+    img = torch.rand((3, 114, 144, 176), device="cuda")
+    assert tw.plan(img, 8, f32)["grouped"] == 1 and tw.plan(img, 8, f32, grad=True) is None
+    flow = torch.zeros((3, 114, 144, 2), device="cuda")
+    before = tw.grad_launches
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 7"):
+        tw.warp_windowed_grad(img, flow, 1.0, torch.ones_like(img), 8, "replicate", f32)
+    assert tw.grad_launches == before

@@ -34,6 +34,11 @@ WINDOWED_CASES = {
     "farneback_r8_c5": (1, 34, 60, 5, 8, 2.0, 0.5, 1.0),
     "per_batch_t": (2, 33, 100, 3, (3, 4), 3.0, 0.5, (0.25, 0.75)),
     "past_r": (2, 64, 300, 3, (2, 2), 25.0, 4.0, 1.0),
+    # SAFA's feature warps (flows clamped to +-8 there): past the reference's
+    # 32-channel chunk, which the twin (and the kernel's channel groups)
+    # takes whole
+    "safa_c40": (1, 40, 72, 40, 8, 6.0, 1.0, 1.0),
+    "safa_c176": (1, 24, 40, 176, 8, 6.0, 1.0, 0.5),
 }
 
 
@@ -47,6 +52,7 @@ WINDOWED_PARAMS = [
     ("per_batch_t", "replicate", "bf16"), ("per_batch_t", "constant", "f32"),
     ("past_r", "replicate", "f32"), ("past_r", "replicate", "bf16"),
     ("past_r", "constant", "bf16"),
+    ("safa_c40", "replicate", "f32"), ("safa_c176", "replicate", "f32"),
 ]
 
 

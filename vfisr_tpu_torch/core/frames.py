@@ -42,6 +42,27 @@ def from_batched(x: torch.Tensor) -> np.ndarray:
     return to_uint8(x).cpu().numpy()
 
 
+def _reflect_index(size: int, before: int, after: int, device) -> torch.Tensor:
+    """Source indices of an axis of ``size`` reflect-padded by (before,
+    after), the edge not repeated, reflecting again past the far edge as
+    numpy's and jnp.pad's 'reflect' do for pads wider than the axis."""
+    i = torch.arange(-before, size + after, device=device)
+    if size == 1:
+        return torch.zeros_like(i)
+    period = 2 * (size - 1)
+    m = torch.remainder(i, period)
+    return torch.where(m < size, m, period - m)
+
+
+def pad_reflect(x: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
+    """Reflect-pad the H and W axes of NHWC (or HWC) x, as
+    ``jnp.pad(mode="reflect")`` does at any width (``F.pad`` refuses a pad
+    as wide as the axis)."""
+    h, w = x.shape[-3], x.shape[-2]
+    x = x.index_select(-3, _reflect_index(h, top, bottom, x.device))
+    return x.index_select(-2, _reflect_index(w, left, right, x.device))
+
+
 def pad_to_multiple(x: torch.Tensor, multiple: int = 32
                     ) -> Tuple[torch.Tensor, Tuple[int, int, int, int]]:
     """Reflect-pad NHWC (or HWC) so H, W are multiples of ``multiple``,

@@ -51,6 +51,22 @@
 // rounding steps and their order are those of the plain twin
 // (ops/cuda/warp.py::warp_windowed_plain).
 //
+// Channel groups (K1 only). A window of all C channels that fits in shared
+// memory at 4 rows per CTA takes the layout above, unchanged (K1's kGrouped
+// = false instantiation is the kernel without groups). A wider one
+// (SAFA's 176-channel feature warps: K1 took at most 9 channels at f32, r =
+// 8) is split into groups of cg channels, one more grid axis: each CTA
+// takes one tile, one row slice and one group, computes the tile origin and
+// each pixel's coordinates and weights itself, and copies only its group's
+// channels of the window: ww runs of cg channels per window row, each in
+// 16-byte cp.async chunks where C and cg channels are whole 16-byte chunks
+// (else element by element), and writes its group's channels of each output
+// pixel directly (a run of cg channels; staging buys no longer run). The
+// per-channel arithmetic is the same, so a grouped launch gives the same
+// bits as the whole-C one and the plain twin. K2 sums its channels in order
+// inside a thread, so it is not grouped: plan() refuses a K2 that does not
+// fit whole.
+//
 // Plain C interface, no PyTorch headers: built by nvcc into a shared
 // library and loaded with ctypes. Each entry returns a cudaError_t: of the
 // launch, or cudaErrorInvalidValue / cudaErrorMisalignedAddress for
@@ -60,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <initializer_list>
 
 namespace {
@@ -83,6 +100,10 @@ struct Params {
   int pt, pl;           // content origin inside the canvas
   int ry, rx;           // residual radii
   int split, rows;      // CTAs per tile (row slices), output rows per CTA
+  int grouped;          // 1: channel groups (K1); 0: the whole-C layout
+  int groups, cg;       // channel groups per tile and channels per group
+                        // (whole C: 1 and c); grid x = tx_n * groups
+  int vec16;            // grouped: the window moves in 16-byte chunks
   int lanes, subrows;   // threads per output row (w rounded up to 32, at most
                         // 256) and rows computed side by side
   int wh, ww;           // window rows and columns of a CTA
@@ -205,22 +226,50 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // allocations are at least 256-byte aligned and sized). Columns outside
 // [xa, xb) are never read: the taps clamp into it (replicate) or read zero
 // (constant).
-template <typename TI, bool kConstant>
+//
+// kGrouped: channels [c0, c0 + cn) of each column only, as (xb - xa) runs
+// of cn channels per row, packed; row_off[i] = i * pitch.
+template <typename TI, bool kConstant, bool kGrouped>
 __device__ __forceinline__ void fill_window(const TI* __restrict__ src, unsigned char* win,
-                                            int* row_off, int oy_row, int xa, int xb,
-                                            const Params& p) {
-  const int run = (xb - xa) * p.c * static_cast<int>(sizeof(TI));  // bytes
-  const int chunks = run / 16 + 2;  // enough from any alignment; p.pitch holds them
-  for (int e = threadIdx.x; e < p.wh * chunks; e += kThreads) {
-    const int i = e / chunks, q = e - i * chunks;
-    int yc = oy_row + i - p.pt;
-    const bool ok = !kConstant || (yc >= 0 && yc < p.h);
-    yc = min(max(yc, 0), p.h - 1);
-    const unsigned char* g = reinterpret_cast<const unsigned char*>(
-        src + (static_cast<size_t>(yc) * p.w + xa) * p.c);
-    const int off = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
-    if (q == 0) row_off[i] = ok ? i * p.pitch + off : -1;
-    if (ok && q * 16 < off + run) cp_async16(win + i * p.pitch + q * 16, g - off + q * 16);
+                                            int* row_off, int oy_row, int xa, int xb, int c0,
+                                            int cn, const Params& p) {
+  constexpr int kB = static_cast<int>(sizeof(TI));
+  if constexpr (!kGrouped) {
+    const int run = (xb - xa) * p.c * kB;  // bytes
+    const int chunks = run / 16 + 2;  // enough from any alignment; p.pitch holds them
+    for (int e = threadIdx.x; e < p.wh * chunks; e += kThreads) {
+      const int i = e / chunks, q = e - i * chunks;
+      int yc = oy_row + i - p.pt;
+      const bool ok = !kConstant || (yc >= 0 && yc < p.h);
+      yc = min(max(yc, 0), p.h - 1);
+      const unsigned char* g = reinterpret_cast<const unsigned char*>(
+          src + (static_cast<size_t>(yc) * p.w + xa) * p.c);
+      const int off = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
+      if (q == 0) row_off[i] = ok ? i * p.pitch + off : -1;
+      if (ok && q * 16 < off + run) cp_async16(win + i * p.pitch + q * 16, g - off + q * 16);
+    }
+  } else {
+    // one unit: a 16-byte chunk of a column's run, or one element
+    const int unit = p.vec16 ? 16 : kB;
+    const int per_col = cn * kB / unit, per_row = (xb - xa) * per_col;
+    for (int e = threadIdx.x; e < p.wh * per_row; e += kThreads) {
+      const int i = e / per_row, k = e - i * per_row;
+      const int j = k / per_col, q = k - j * per_col;
+      int yc = oy_row + i - p.pt;
+      const bool ok = !kConstant || (yc >= 0 && yc < p.h);
+      yc = min(max(yc, 0), p.h - 1);
+      if (k == 0) row_off[i] = ok ? i * p.pitch : -1;
+      if (!ok) continue;
+      const unsigned char* g = reinterpret_cast<const unsigned char*>(
+          src + (static_cast<size_t>(yc) * p.w + xa + j) * p.c + c0) + q * unit;
+      unsigned char* d = win + i * p.pitch + (j * per_col + q) * unit;
+      if (p.vec16)
+        cp_async16(d, g);
+      else if (kB == 4)
+        *reinterpret_cast<unsigned*>(d) = __ldg(reinterpret_cast<const unsigned*>(g));
+      else
+        *reinterpret_cast<unsigned short*>(d) = __ldg(reinterpret_cast<const unsigned short*>(g));
+    }
   }
   cp_async_wait_all();
 }
@@ -300,17 +349,27 @@ __device__ __forceinline__ float row_sum(float w0, float v0, float w1, float v1)
   return bf16_round(__fadd_rn(p0, p1));
 }
 
-// The CTA's place: tile (n, ty, tx) and its row slice, whose first output
-// row is the tile's row0 and which has `rows_n` rows inside the content.
+// The CTA's place: tile (n, ty, tx), its row slice, whose first output
+// row is the tile's row0 and which has `rows_n` rows inside the content,
+// and its channels [c0, c0 + cn).
 struct Place {
-  int n, ty, tx, row0, y0, rows_n;
+  int n, ty, tx, row0, y0, rows_n, c0, cn;
 };
 
+template <bool kGrouped>
 __device__ __forceinline__ Place place(const Params& p) {
   Place c;
   c.n = blockIdx.z;
   c.ty = blockIdx.y / p.split;
-  c.tx = blockIdx.x;
+  if constexpr (kGrouped) {
+    c.tx = blockIdx.x / p.groups;
+    c.c0 = (blockIdx.x - c.tx * p.groups) * p.cg;
+    c.cn = min(p.cg, p.c - c.c0);
+  } else {
+    c.tx = blockIdx.x;
+    c.c0 = 0;
+    c.cn = p.c;
+  }
   c.row0 = (blockIdx.y % p.split) * p.rows;
   c.y0 = c.ty * kTh + c.row0;
   c.rows_n = min(p.rows, p.h - c.y0);
@@ -333,7 +392,8 @@ __device__ __forceinline__ void load_flow(const TF* __restrict__ fl, int r, int 
 }
 
 // Where a pixel's 2x2 taps lie in the window: byte offsets of the two rows
-// and the two columns (clamped into the copied columns [xa, xb)), and
+// and the two columns (clamped into the copied columns [xa, xb), px bytes
+// per column), and
 // whether each tap is inside the content (constant border; always with
 // replicate).
 struct Taps {
@@ -341,9 +401,9 @@ struct Taps {
   bool ok[2][2];
 };
 
-template <typename TI, bool kConstant>
+template <bool kConstant>
 __device__ __forceinline__ Taps taps_at(const Sample& s, const int* row_off, int xc0, int xa,
-                                        int xb, const Params& p) {
+                                        int xb, int px, const Params& p) {
   Taps q;
   bool okr[2], okc[2];
 #pragma unroll
@@ -353,7 +413,7 @@ __device__ __forceinline__ Taps taps_at(const Sample& s, const int* row_off, int
     q.row[k] = max(ro, 0);
     const int xq = xc0 + s.wj + k;  // content column of the tap
     okc[k] = !kConstant || (xq >= 0 && xq < p.w);
-    q.col[k] = (min(max(xq, xa), xb - 1) - xa) * p.c * static_cast<int>(sizeof(TI));
+    q.col[k] = (min(max(xq, xa), xb - 1) - xa) * px;
   }
 #pragma unroll
   for (int a = 0; a < 2; ++a)
@@ -382,10 +442,13 @@ struct Window {
   int* row_off;        // [wh]: byte offset of each window row's run, -1: zeros
   unsigned char* win;  // [wh][pitch] bytes
   int xc0, xa, xb;     // content column of window column 0; copied columns
+  int px;              // bytes per window column: the CTA's channels
 };
 
-__device__ __forceinline__ Window window_of(unsigned char* smem, int2 o, const Params& p) {
+__device__ __forceinline__ Window window_of(unsigned char* smem, int2 o, int cn, int img_bytes,
+                                            const Params& p) {
   Window wd;
+  wd.px = cn * img_bytes;
   wd.row_off = reinterpret_cast<int*>(smem);
   wd.win = smem + p.win_offset;
   wd.xc0 = o.x - p.pl;
@@ -397,13 +460,15 @@ __device__ __forceinline__ Window window_of(unsigned char* smem, int2 o, const P
 // K1. kBf16: window values, horizontal weights and horizontal sums in bf16
 // (compute_dtype=bfloat16); the vertical accumulation stays f32.
 // kConstant: zero canvas outside the content instead of edge replication.
-template <typename TI, typename TF, bool kBf16, bool kConstant>
+// kGrouped: the CTA takes one channel group (the whole-C instantiation is
+// the kernel without groups, unchanged).
+template <typename TI, typename TF, bool kBf16, bool kConstant, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     warp_windowed_kernel(const TI* __restrict__ img, const TF* __restrict__ flow,
                          const float* __restrict__ t, TI* __restrict__ out, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float2 part[kWarps];
-  const Place c = place(p);
+  const Place c = place<kGrouped>(p);
   const float tn = batch_t(t, p, c.n);
   const int2 o = tile_origin<TF, kBf16>(flow, tn, p, c.n, c.ty, c.tx, part);
   if (c.rows_n <= 0) return;  // a slice of the tile's edge padding: the whole CTA
@@ -413,14 +478,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int x = c.tx * kTw + cols;
   const int xw = x - lane;  // the warp's first column
   const bool live = sub < p.subrows && x < p.w;
-  const Window wd = window_of(smem, o, p);
+  const Window wd = window_of(smem, o, c.cn, static_cast<int>(sizeof(TI)), p);
   TI* stage = reinterpret_cast<TI*>(smem + p.stage_offset) + warp * (kGroup * 32 * p.c);
   const TF* fl = flow + ((static_cast<size_t>(c.n) * p.h + c.y0) * p.w + x) * 2;
   const int step = kGroup * p.subrows;
   float fx[kGroup], fy[kGroup];
   load_flow(fl, sub, c.rows_n, live, p, fx, fy);  // in flight during the copy
-  fill_window<TI, kConstant>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c, wd.win,
-                             wd.row_off, o.y + c.row0, wd.xa, wd.xb, p);
+  fill_window<TI, kConstant, kGrouped>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c,
+                                       wd.win, wd.row_off, o.y + c.row0, wd.xa, wd.xb, c.c0,
+                                       c.cn, p);
   __syncthreads();
   if (sub >= p.subrows) return;  // whole warps: lanes is a multiple of 32
   for (int r = sub; r < c.rows_n; r += step) {
@@ -432,9 +498,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const int y = c.y0 + r + g * p.subrows;
       const Sample s = sample_at<kBf16>(fx[g], fy[g], tn, o, p, y, x, y - c.ty * kTh, cols,
                                         c.row0);
-      const Taps q = taps_at<TI, kConstant>(s, wd.row_off, wd.xc0, wd.xa, wd.xb, p);
-      TI* dst = stage + (g * 32 + lane) * p.c;
-      for (int ch = 0; ch < p.c; ++ch) {
+      const Taps q = taps_at<kConstant>(s, wd.row_off, wd.xc0, wd.xa, wd.xb, wd.px, p);
+      // whole C: the warp's staging row; grouped: the output pixel's channels
+      TI* dst = kGrouped ? out + ((static_cast<size_t>(c.n) * p.h + y) * p.w + x) * p.c + c.c0
+                         : stage + (g * 32 + lane) * p.c;
+      for (int ch = 0; ch < c.cn; ++ch) {
         float v[2][2];
         tap_values<TI, kBf16>(wd.win, q, ch, v);
         const float in0 = row_sum<kBf16>(s.wx0, v[0][0], s.wx1, v[0][1]);
@@ -442,18 +510,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         st(dst + ch, __fadd_rn(__fmul_rn(s.wy0, in0), __fmul_rn(s.wy1, in1)));
       }
     }
-    // each of the warp's rows: one contiguous run of 32 pixels
-    __syncwarp();
-    const int run = min(32, p.w - xw) * p.c;
+    if constexpr (!kGrouped) {
+      // each of the warp's rows: one contiguous run of 32 pixels
+      __syncwarp();
+      const int run = min(32, p.w - xw) * p.c;
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      const int rg = r + g * p.subrows;
-      if (rg >= c.rows_n) break;
-      TI* dst = out + ((static_cast<size_t>(c.n) * p.h + c.y0 + rg) * p.w + xw) * p.c;
-      const TI* from = stage + g * 32 * p.c;
-      for (int k = lane; k < run; k += 32) dst[k] = from[k];
+      for (int g = 0; g < kGroup; ++g) {
+        const int rg = r + g * p.subrows;
+        if (rg >= c.rows_n) break;
+        TI* dst = out + ((static_cast<size_t>(c.n) * p.h + c.y0 + rg) * p.w + xw) * p.c;
+        const TI* from = stage + g * 32 * p.c;
+        for (int k = lane; k < run; k += 32) dst[k] = from[k];
+      }
+      __syncwarp();
     }
-    __syncwarp();
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
       fx[g] = nfx[g];
@@ -483,21 +553,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                               TF* __restrict__ grad_flow, float* __restrict__ cg, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float2 part[kWarps];
-  const Place c = place(p);
+  const Place c = place<false>(p);
   const float tn = batch_t(t, p, c.n);
   const int2 o = tile_origin<TF, kBf16>(flow, tn, p, c.n, c.ty, c.tx, part);
   if (c.rows_n <= 0) return;
   const int sub = threadIdx.x / p.lanes, cols = threadIdx.x - sub * p.lanes;
   const int x = c.tx * kTw + cols;
   const bool live = sub < p.subrows && x < p.w;
-  const Window wd = window_of(smem, o, p);
+  const Window wd = window_of(smem, o, p.c, static_cast<int>(sizeof(TI)), p);
   const size_t pix0 = (static_cast<size_t>(c.n) * p.h + c.y0) * p.w + x;  // row 0 of the slice
   const TF* fl = flow + pix0 * 2;
   const int step = kGroup * p.subrows;
   float fx[kGroup], fy[kGroup];
   load_flow(fl, sub, c.rows_n, live, p, fx, fy);
-  fill_window<TI, kConstant>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c, wd.win,
-                             wd.row_off, o.y + c.row0, wd.xa, wd.xb, p);
+  fill_window<TI, kConstant, false>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c, wd.win,
+                                    wd.row_off, o.y + c.row0, wd.xa, wd.xb, 0, p.c, p);
   __syncthreads();
   if (sub >= p.subrows) return;
   for (int r = sub; r < c.rows_n; r += step) {
@@ -526,7 +596,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                           s.ry_raw < p.ry_max) ? 1.f : 0.f;
         const float mx = (s.sx_raw >= p.xlo && s.sx_raw < p.xhi && s.rx_raw >= 0.f &&
                           s.rx_raw < p.rx_max) ? 1.f : 0.f;
-        const Taps q = taps_at<TI, kConstant>(s, wd.row_off, wd.xc0, wd.xa, wd.xb, p);
+        const Taps q = taps_at<kConstant>(s, wd.row_off, wd.xc0, wd.xa, wd.xb, wd.px, p);
 #pragma unroll
         for (int u = 0; u < kCt; ++u) {
           if (c0 + u >= p.c) break;
@@ -583,11 +653,13 @@ size_t round16(size_t b) { return (b + 15) / 16 * 16; }
 // Tiles, row slices and shared memory of a launch. split: row slices per
 // tile (1, 2, 4 or 8), the fewest that give two CTAs per SM (so a small
 // image still spreads over the card) and a window that leaves room for two
-// CTAs per SM, else for one; a window that fits neither at 4 rows per CTA
-// is refused (cudaErrorInvalidValue). K1 (staging) also holds its output
-// staging buffers. Returns the dynamic shared memory in *smem.
-cudaError_t plan(Params& p, int nsh_y, int nsh_x, size_t img_bytes, bool staging, int* dev,
-                 size_t* smem) {
+// CTAs per SM, else for one. K1 (staging) also holds its output staging
+// buffers. A window of all C channels that fits neither at 4 rows per CTA
+// takes channel groups where `groups` allows them (K1) and is refused
+// otherwise (cudaErrorInvalidValue). Returns the dynamic shared memory in
+// *smem.
+cudaError_t plan(Params& p, int nsh_y, int nsh_x, size_t img_bytes, bool staging, bool groups,
+                 int* dev, size_t* smem) {
   if (p.n <= 0 || p.h <= 0 || p.w <= 0 || p.c <= 0 || nsh_y < 2 || nsh_x < 2)
     return cudaErrorInvalidValue;
   p.ty_n = (p.h + kTh - 1) / kTh;
@@ -596,34 +668,75 @@ cudaError_t plan(Params& p, int nsh_y, int nsh_x, size_t img_bytes, bool staging
   cudaError_t err = cudaGetDevice(dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, *dev);
   if (err != cudaSuccess) return err;
+  if (p.n > 65535) return cudaErrorInvalidValue;
   const long long tiles = static_cast<long long>(p.n) * p.ty_n * p.tx_n;
   int split = 1;
   while (split < kMaxSplit && tiles * split < 2LL * sms) split *= 2;
   p.lanes = min(kTw, (p.w + 31) / 32 * 32);
   p.subrows = kThreads / p.lanes;
   p.ww = kTw + nsh_x - 1;
+  p.grouped = 0, p.groups = 1, p.cg = p.c, p.vec16 = 0;
   p.pitch = static_cast<int>(round16(p.ww * p.c * img_bytes) + 32);  // + alignment slack
   const size_t stage = staging ? static_cast<size_t>(kWarps) * kGroup * 32 * p.c * img_bytes : 0;
-  size_t bytes = 0;
   for (const size_t budget : {kSmemTwo, kSmemMax}) {
     for (int s = split; s <= kMaxSplit; s *= 2) {
       const int wh = kTh / s + nsh_y - 1;
       const size_t win_offset = round16(sizeof(int) * wh);
-      bytes = win_offset + static_cast<size_t>(wh) * p.pitch + stage;
+      const size_t bytes = win_offset + static_cast<size_t>(wh) * p.pitch + stage;
       if (bytes <= budget) {
         p.split = s;
         p.rows = kTh / s;
         p.wh = wh;
         p.win_offset = static_cast<int>(win_offset);
         p.stage_offset = static_cast<int>(bytes - stage);
-        if (p.n > 65535 || static_cast<long long>(p.ty_n) * s > 65535)
-          return cudaErrorInvalidValue;
+        if (static_cast<long long>(p.ty_n) * s > 65535) return cudaErrorInvalidValue;
         *smem = bytes;
         return cudaSuccess;
       }
     }
   }
-  return cudaErrorInvalidValue;  // the window does not fit in shared memory
+  if (!groups) return cudaErrorInvalidValue;  // the window does not fit in shared memory
+  // Channel groups: a window copies at most min(ww, w) columns of cg
+  // channels, packed, with no staging. cg is a multiple of `unit` channels,
+  // so that every group starts on a 16-byte boundary where C channels are
+  // whole 16-byte chunks. Per budget, the fewest row slices whose window
+  // holds a group and whose CTAs (tiles x slices x groups) fill two per SM,
+  // else the most slices that hold a group; the groups are then evened out.
+  const int cols = min(p.ww, p.w);
+  const int unit = (p.c * img_bytes) % 16 == 0 ? static_cast<int>(16 / img_bytes) : 1;
+  for (const size_t budget : {kSmemTwo, kSmemMax}) {
+    int best_s = 0, best_cg = 0;
+    for (int s = 1; s <= kMaxSplit; s *= 2) {
+      const int wh = kTh / s + nsh_y - 1;
+      const size_t win_offset = round16(sizeof(int) * wh);
+      if (win_offset >= budget) continue;
+      // the largest multiple of unit channels whose rows fit
+      const size_t row_max = (budget - win_offset) / wh / 16 * 16;
+      const int cg =
+          static_cast<int>(std::min<size_t>(row_max / (cols * img_bytes), p.c)) / unit * unit;
+      if (cg < 1) continue;
+      best_s = s, best_cg = cg;
+      if (tiles * s * ((p.c + cg - 1) / cg) >= 2LL * sms) break;
+    }
+    if (best_s == 0) continue;
+    const int fewest = (p.c + best_cg - 1) / best_cg;  // groups of at most best_cg
+    p.cg = ((p.c + fewest - 1) / fewest + unit - 1) / unit * unit;
+    p.groups = (p.c + p.cg - 1) / p.cg;
+    p.grouped = 1;
+    p.vec16 = unit > 1;
+    p.split = best_s;
+    p.rows = kTh / best_s;
+    p.wh = p.rows + nsh_y - 1;
+    p.pitch = static_cast<int>(round16(static_cast<size_t>(cols) * p.cg * img_bytes));
+    p.win_offset = static_cast<int>(round16(sizeof(int) * p.wh));
+    p.stage_offset = 0;
+    if (static_cast<long long>(p.ty_n) * best_s > 65535 ||
+        static_cast<long long>(p.tx_n) * p.groups > 0x7fffffffLL)
+      return cudaErrorInvalidValue;
+    *smem = p.win_offset + static_cast<size_t>(p.wh) * p.pitch;
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidValue;
 }
 
 // Lets `kernel` take up to kSmemMax of dynamic shared memory on device dev,
@@ -644,8 +757,14 @@ struct Interp {
   template <bool kBf16, bool kConstant>
   static cudaError_t run(dim3 grid, size_t smem, int dev, cudaStream_t stream, const Params& p,
                          const void* img, const void* flow, const float* t, void* out) {
+    return p.grouped ? go<kBf16, kConstant, true>(grid, smem, dev, stream, p, img, flow, t, out)
+                     : go<kBf16, kConstant, false>(grid, smem, dev, stream, p, img, flow, t, out);
+  }
+  template <bool kBf16, bool kConstant, bool kGrouped>
+  static cudaError_t go(dim3 grid, size_t smem, int dev, cudaStream_t stream, const Params& p,
+                        const void* img, const void* flow, const float* t, void* out) {
     static bool done[kMaxDevices] = {};
-    auto kernel = warp_windowed_kernel<TI, TF, kBf16, kConstant>;
+    auto kernel = warp_windowed_kernel<TI, TF, kBf16, kConstant, kGrouped>;
     const cudaError_t err = set_smem(kernel, dev, done);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, stream>>>(static_cast<const TI*>(img),
@@ -724,9 +843,11 @@ extern "C" int warp_windowed_launch(
                          ry_max, rx_max);
   size_t smem = 0;
   int dev = 0;
-  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, true, &dev, &smem);
+  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, true, true, &dev, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.tx_n, p.ty_n * p.split, p.n);
+  // 16-byte group copies need a 16-byte aligned image (a view may not be)
+  if (reinterpret_cast<uintptr_t>(img) % 16) p.vec16 = 0;
+  const dim3 grid(p.tx_n * p.groups, p.ty_n * p.split, p.n);
   return static_cast<int>(launch_typed<Interp>(
       img_bf16, flow_bf16, grid, smem, dev, bf16_window, constant,
       static_cast<cudaStream_t>(stream), p, img, flow, static_cast<const float*>(t), out));
@@ -749,7 +870,7 @@ extern "C" int warp_windowed_grad_launch(
                          ry_max, rx_max);
   size_t smem = 0;
   int dev = 0;
-  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, false, &dev, &smem);
+  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, false, false, &dev, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.tx_n, p.ty_n * p.split, p.n);
   return static_cast<int>(launch_typed<Grad>(
@@ -789,4 +910,24 @@ extern "C" int warp_windowed_origins_launch(
       origins_kernel<float, false><<<grid, kThreads, 0, s>>>(f, tp, o, p);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of a K1 (grad = 0) or K2 (grad = 1) launch on the current
+// device, for the wrappers and the checks: out[0..6] = split (row slices
+// per tile), rows per CTA, grouped (0: the whole-C layout), channel groups,
+// channels per group, dynamic shared memory bytes, CTAs. Returns the
+// cudaError_t of the plan (cudaErrorInvalidValue: the launch would be
+// refused).
+extern "C" int warp_windowed_plan(int n, int h, int w, int c, int img_bf16, int nsh_y, int nsh_x,
+                                  int grad, long long* out) {
+  Params p = make_params(n, h, w, c, 0.f, 0, 0, 0, 0, 0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
+  size_t smem = 0;
+  int dev = 0;
+  const cudaError_t err =
+      plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, !grad, !grad, &dev, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long v[7] = {p.split, p.rows, p.grouped, p.groups, p.cg, static_cast<long long>(smem),
+                          static_cast<long long>(p.tx_n) * p.groups * p.ty_n * p.split * p.n};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }

@@ -11,6 +11,7 @@ Entry points default to ``device="cuda"``.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
@@ -64,6 +65,24 @@ def device_peak_mb(device=None) -> float:
                                          and torch.device(device).type != "cuda"):
         return 0.0
     return torch.cuda.max_memory_allocated(device) / 1e6
+
+
+@contextlib.contextmanager
+def without_cudnn():
+    """PyTorch's own convolution (im2col and a GEMM) instead of cuDNN's,
+    around the f32 convolutions (TF32 off) where cuDNN's heuristic plan was
+    measured to lose on an H100 80GB HBM3 at 700 W (chip_smoke.py's conv
+    lines; PERF.md): VFIMamba's decoder conv, 512->128 at 1/8 resolution,
+    345 ms and a 35.5 GB workspace against 3.8 ms; SAFA's 1/4-resolution
+    convs at 176 channels, 24-442 ms and 17-34 GB workspaces against 1-2
+    ms, and its full-resolution dec_c, 26.7 against 15.1 ms; SPAN's 1x1
+    conv_cat, 9.1 against 6.7 ms."""
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
 
 
 def upscale_frame(frame: np.ndarray, scale: float, method: str, device) -> np.ndarray:

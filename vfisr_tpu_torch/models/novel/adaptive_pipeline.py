@@ -354,6 +354,7 @@ class AdaptivePipeline(BaseModel):
         self.stats = RoutingStats()
         self._rife = None
         self._vfimamba = None
+        self._sr = None  # SPANModel with sr_model_name="span"; else Lanczos4
 
     @property
     def info(self) -> ModelInfo:
@@ -371,8 +372,6 @@ class AdaptivePipeline(BaseModel):
         from vfisr_tpu_torch.utils.paths import default_weights
         from vfisr_tpu_torch.utils.router_gate import expert_bins, heavy_expert_allowed
 
-        if self.sr_model_name == "span":
-            raise NotImplementedError("SPAN SR is not ported yet (ROADMAP queue 1, item 7)")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self._rife = RIFEModel(device=self.device)
@@ -405,6 +404,11 @@ class AdaptivePipeline(BaseModel):
                 print(f"Warning: Could not load VFIMamba: {e}")
                 print("Will use RIFE for all frames")
                 self.enable_vfimamba = False
+        if self.sr_model_name == "span":
+            from vfisr_tpu_torch.models.sota.span import SPANModel
+
+            self._sr = SPANModel(device=self.device)
+            self._sr.load()
         self._loaded = True
 
     def _count(self, scene: np.ndarray, mamba: np.ndarray) -> None:
@@ -458,6 +462,9 @@ class AdaptivePipeline(BaseModel):
         return super().interpolate(frame0, frame1, num_frames, timestamps)
 
     def upscale_batch(self, x: torch.Tensor, scale: float = 1.333) -> torch.Tensor:
+        """SPAN x2 then Lanczos4 with sr_model_name="span", else Lanczos4."""
+        if self._sr is not None:
+            return self._sr.upscale_batch(x, scale)
         h, w = x.shape[-3:-1]
         return resize(x, scale_size(h, w, scale), "lanczos4")
 

@@ -1,6 +1,5 @@
 """Model registry (port of ``vfisr_tpu/models/registry.py``): the same 13
-names. ``span``, ``safa``, ``rife_span`` and ``vfimamba_span`` are not
-ported yet; ``get_model`` raises ``NotImplementedError`` for them."""
+names, each constructed and loaded as the JAX package's factory does."""
 
 from __future__ import annotations
 
@@ -51,6 +50,30 @@ def _vfimamba_s(**kw):
     return VFIMambaModel(variant="small", **kw)
 
 
+def _span(**kw):
+    from vfisr_tpu_torch.models.sota.span import SPANModel
+
+    return SPANModel(**kw)
+
+
+def _safa(**kw):
+    from vfisr_tpu_torch.models.sota.safa import SAFAModel
+
+    return SAFAModel(**kw)
+
+
+def _rife_span(**kw):
+    from vfisr_tpu_torch.models.sota.span import create_rife_span
+
+    return create_rife_span(**kw)
+
+
+def _vfimamba_span(**kw):
+    from vfisr_tpu_torch.models.sota.span import create_vfimamba_span
+
+    return create_vfimamba_span(**kw)
+
+
 def _adaptive(**kw):
     from vfisr_tpu_torch.models.novel.adaptive_pipeline import AdaptivePipeline
 
@@ -63,14 +86,6 @@ def _flagship(**kw):
     return FlagshipVFI(**kw)
 
 
-def _not_ported(name: str):
-    def make(**kw):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (SPAN and SAFA: ROADMAP queue 1, item 7)")
-
-    return make
-
-
 MODEL_REGISTRY: Dict[str, Callable[..., BaseModel]] = {
     # traditional
     "bicubic": _bicubic,
@@ -81,11 +96,11 @@ MODEL_REGISTRY: Dict[str, Callable[..., BaseModel]] = {
     "rife_lite": _rife_lite,
     "vfimamba": _vfimamba,
     "vfimamba_s": _vfimamba_s,
-    "span": _not_ported("span"),
-    "safa": _not_ported("safa"),
+    "span": _span,
+    "safa": _safa,
     # two-stage compositions
-    "rife_span": _not_ported("rife_span"),
-    "vfimamba_span": _not_ported("vfimamba_span"),
+    "rife_span": _rife_span,
+    "vfimamba_span": _vfimamba_span,
     # novel
     "adaptive": _adaptive,
     # the fused deployment step

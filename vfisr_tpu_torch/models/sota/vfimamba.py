@@ -35,7 +35,6 @@ mirror the Flax tree (``Conv_0``..``Conv_6``, ``block<i>``, ``t_embed``,
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -47,7 +46,7 @@ import torch.nn.functional as F
 from vfisr_tpu_torch.core.frames import pad_to_multiple, unpad
 from vfisr_tpu_torch.core.resize import resize, scale_size
 from vfisr_tpu_torch.core.warp import backward_warp
-from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, upscale_frame
+from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, upscale_frame, without_cudnn
 
 SCAN_CHUNK = 32  # steps of L per chunk of the selective scan
 
@@ -153,22 +152,6 @@ def _upsample(x: torch.Tensor, hw) -> torch.Tensor:
     return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False, antialias=False)
 
 
-@contextlib.contextmanager
-def _without_cudnn():
-    """PyTorch's own convolution (im2col and a GEMM) instead of cuDNN's.
-    For the decoder's 512->128 conv at 1/8 resolution, f32 with TF32 off
-    and a batch of 3 (one 1080p pair, 3 timesteps), cuDNN's heuristics pick
-    an algorithm that takes 345 ms and a 35.5 GB workspace on an H100 80GB
-    HBM3 at 700 W, where PyTorch's takes 3.8 ms and 0.65 GB (chip_smoke.py's
-    "decoder conv" lines; PERF.md)."""
-    enabled = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.enabled = enabled
-
-
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
@@ -224,7 +207,7 @@ class VFIMambaNet(nn.Module):
         n, h, w, _ = img0.shape
         t = torch.as_tensor(timestep, dtype=img0.dtype, device=img0.device).reshape(-1, 1)
         feat = self._trunk(self._encode(img0), self._encode(img1), t)
-        with _without_cudnn():
+        with without_cudnn():  # see base.without_cudnn
             feat = self.Conv_3(feat)
         out = self.Conv_4(F.silu(feat))  # flow (4) + mask (1) at 1/8
 

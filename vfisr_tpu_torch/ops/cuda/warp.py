@@ -28,6 +28,14 @@ op besides allocating their outputs (and K2's ``ct.contiguous()``).
 that hold them against ``window_origins``. What bounds the kernels on the
 H100 is bytes: see the note in the CUDA source.
 
+Channels: K1 takes any C, as the Pallas wrapper does by chunking. A window
+of all C channels that does not fit in shared memory (past 9 channels for
+an f32 image at r = 8, such as SAFA's 176-channel feature warps) is split
+into channel groups, one more grid axis, with the same bits as the whole-C
+launch. K2 keeps the whole-C window and ``warp_windowed_grad`` refuses a
+wider one with a ValueError before it launches. ``plan`` says how the
+kernel takes a launch.
+
 ``warp_windowed_plain`` (with its ``weight_mode``) and
 ``warp_windowed_grad_plain`` are the same functions in plain PyTorch. The
 wrappers use them for tensors on the CPU; on a CUDA tensor they launch the
@@ -93,8 +101,9 @@ def build() -> ctypes.CDLL:
     lib.warp_windowed_launch.argtypes = [p, p, *t_args, p] + [i] * 14 + [f] * 6 + [p]
     lib.warp_windowed_grad_launch.argtypes = [p, p, *t_args, p, p, p] + [i] * 14 + [f] * 6 + [p]
     lib.warp_windowed_origins_launch.argtypes = [p, *t_args, p] + [i] * 9 + [p]
+    lib.warp_windowed_plan.argtypes = [i] * 8 + [p]
     for fn in (lib.warp_windowed_launch, lib.warp_windowed_grad_launch,
-               lib.warp_windowed_origins_launch):
+               lib.warp_windowed_origins_launch, lib.warp_windowed_plan):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -225,6 +234,33 @@ def _launch_args(img, flow, r, border, compute_dtype) -> tuple:
                        *_radii(r), compute_dtype == torch.bfloat16, border)
 
 
+PLAN_FIELDS = ("split", "rows", "grouped", "groups", "cg", "smem", "ctas")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device_index: int, n, h, w, c, img_bf16: bool, nsh_y, nsh_x, grad: bool):
+    lib = build()
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    with torch.cuda.device(device_index):
+        err = lib.warp_windowed_plan(n, h, w, c, int(img_bf16), nsh_y, nsh_x, int(grad), out)
+    return None if err else dict(zip(PLAN_FIELDS, out))
+
+
+def plan(img: torch.Tensor, r, compute_dtype: torch.dtype, grad: bool = False):
+    """How the kernel takes img [N,H,W,C] on its CUDA card: a dict of
+    PLAN_FIELDS (row slices per tile, rows per CTA, whether the channels
+    are split into groups, how many groups of how many channels, shared
+    memory bytes per CTA, CTAs), or None where the kernel refuses the
+    launch. K1 (grad=False) splits a window of all C channels that does
+    not fit in shared memory into channel groups; K2 (grad=True) does not
+    and refuses it."""
+    ry, rx = _radii(r)
+    bf16 = compute_dtype == torch.bfloat16
+    _, _, nsh_y, nsh_x, _ = _geometry(img.shape[1], img.shape[2], ry, rx, bf16, "replicate")
+    return _plan(img.device.index if img.device.index is not None else torch.cuda.current_device(),
+                 *img.shape, img.dtype == torch.bfloat16, nsh_y, nsh_x, grad)
+
+
 def warp_windowed(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
                   border: str = "replicate",
                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -232,7 +268,8 @@ def warp_windowed(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
 
     t: scalar or [N]; r: int or (ry, rx) residual radius; border:
     'replicate' or 'constant'; compute_dtype: window dtype (bf16 as in the
-    TPU kernel's compute_dtype). Returns img's dtype. CPU tensors go to
+    TPU kernel's compute_dtype). Any C (in channel groups where the window
+    needs them, ``plan``). Returns img's dtype. CPU tensors go to
     ``warp_windowed_plain``; CUDA tensors to the kernel.
     """
     _check(img, flow, border, compute_dtype)
@@ -282,6 +319,12 @@ def warp_windowed_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tenso
     if img.device.type == "cpu":
         return warp_windowed_grad_plain(img, flow, t, ct, r, border, compute_dtype)
     _check_cuda("warp_windowed_grad", img, flow)
+    if plan(img, r, compute_dtype, grad=True) is None:
+        raise ValueError(
+            f"warp_windowed_grad: a window of {img.shape[-1]} channels does not fit in shared "
+            f"memory (img {tuple(img.shape)} {img.dtype}, r={r}, window {compute_dtype}); K2 "
+            "sums its channels in order inside a thread and is not split into channel groups "
+            "yet (SAFA training: ROADMAP queue 1, item 7)")
     grad_flow = torch.empty_like(flow)
     cg = torch.empty(flow.shape, dtype=torch.float32, device=flow.device)
     # autograd hands back cotangents of permuted outputs (rife.py's NCHW

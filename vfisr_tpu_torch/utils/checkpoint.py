@@ -18,7 +18,8 @@ module names mirror Flax's (``block0.Conv_0.weight``):
 ``params_to_jax`` is the inverse, and ``save_npz`` writes the layout that
 ``vfisr_tpu.utils.checkpoint.save_params`` writes, so either package loads
 what the other saved. ``load_params`` reads a checkpoint against the keys
-and shapes a model expects, with the reference's ``partial`` warm start.
+and shapes a model expects, with the reference's ``partial`` warm start;
+``load_into`` loads one into a module strictly.
 """
 
 from __future__ import annotations
@@ -66,6 +67,13 @@ def load_params(path: str, like: Optional[Mapping[str, np.ndarray]] = None,
         if got[k].shape != np.shape(v):
             raise ValueError(f"checkpoint {path} key {k}: shape {got[k].shape} != {np.shape(v)}")
     return {k: got[k] for k in like} if partial else got
+
+
+def load_into(module: torch.nn.Module, path: str) -> None:
+    """Load the checkpoint at path into module, strictly: every parameter
+    of the module in the file with its shape (ValueError), and no other
+    (RuntimeError)."""
+    module.load_state_dict(params_from_jax(load_params(path, params_to_jax(module.state_dict()))))
 
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
