@@ -99,15 +99,42 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    upscale_batch on one pair (its SR equal to SPAN's);
 12. holds K1 in channel groups against its twin at C in GROUPED_C, f32 and
    bf16 windows, both borders, at SAFA's feature shape (in step 6's phase),
-   and shows that every K1 launch of steps 4, 8 and 9 keeps the whole-C
-   layout (one channel group).
+   and shows that every K1 launch of steps 4, 8 and 9, and every K2 launch
+   of step 8, keeps the whole-C layout (one channel group);
+13. trains full-width SAFA (weights/safa.npz, taken for training; TF32 off)
+   as ``python -m vfisr_tpu_torch.train --model safa`` does at its defaults:
+   batch 16, crop 192 (scenes made on the card at 384, the endpoints
+   area-resized to 192, the midpoint supervised at 384; the trainer's own
+   ``batch_maker``), lr 2e-4, remat. One recorded step with both kernels'
+   counts set to 0 before and read after and ``window_origins`` raising:
+   18 K1 launches (12 feature warps [16,48,48,176] in channel groups, 4
+   frame warps and 2 data warps whole-C), 6 K2 launches (4 feature warps in
+   channel groups at 176 channels, 2 frame warps whole-C), 6 shifted
+   adjoints (the features' gradient). Checks: origins at all 24 launches;
+   K2 against its twin at every launch and at synthetic cases of each
+   shape (1e-5 of the largest |cg| with f32 windows); K1 against its twin
+   at every launch; each grouped K2 launch twice, bit-identical; the whole
+   step with the kernels against the same step with both plain twins
+   (deterministic cuDNN; loss 1e-5 relative, gradients 1e-4 of each
+   tensor's largest). Then SAFA_TRAIN_STEPS timed steps, counted (ms/step,
+   samples/s, peak memory), the shifted adjoint per call at the step's own
+   inputs and its share of a step, every conv shape of a step forward and
+   backward with cuDNN's plan and without (the path's forward choice
+   printed), and per launch shape the kernels alone (CUDA-graph replay),
+   their wrappers, bounds, plain twins and grid_sample (its grid gradient
+   for K2);
+14. trains SPAN x2 and x4 (weights/span_x2.npz, span_x4.npz) as the trainer
+   does (``make_sr_train_step``, crisp scenes at 192, the input
+   area-resized to 96 or 48; batch 16, no remat): SPAN_TRAIN_STEPS timed
+   steps each (ms/step, samples/s, peak memory, no warp launched) and the
+   conv table as in step 13.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
-it (K1: the flagship pairs, the train steps, the adaptive sequence and the
-SAFA pairs; K2: the train steps) and the device time, bound, plain-twin and
-grid_sample time of exactly those launches. The last line is {"ok": true,
-"device": {...}}.
+it (K1: the flagship pairs, the RIFE train steps, the adaptive sequence, the
+SAFA pairs and the SAFA train steps; K2: the RIFE and the SAFA train steps)
+and the device time, bound, plain-twin and grid_sample time of exactly
+those launches. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -125,6 +152,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"  # the training phases' device (a CPU rehearsal of their control flow sets "cpu")
 PAIRS = 6  # timed pairs of the main path
 TS = (0.25, 0.5, 0.75)
 SCALE = 1440 / 1080  # the streaming pipeline's target_h / height
@@ -157,6 +185,20 @@ K1_MASKED = 23  # both experts run on every pair
 SAFA_PAIRS = (("static", 15, 15), ("pan 3 px", 15, 18), ("pan 8 px", 18, 26))
 K1_PER_SAFA_PAIR = 96
 GROUPED_C = (10, 16, 33, 176)  # K1 past the channels one window holds
+# the SAFA training phase: scripts/train.py --model safa at its defaults
+# (batch 16, crop 192: scenes at 384, the endpoints area-resized to 192, the
+# midpoint supervised at 384; remat). Per step, K1: 2 data warps, then the
+# 6 feature warps ([16,48,48,176], channel groups) and 2 frame warps
+# ([16,192,192,3]) of the forward and of its recompute; K2: the flow
+# gradients of the 4 feature warps whose flow is trained (flow stage 1 and
+# the aggregation; stage 0 warps by a constant zero flow) and of the 2 frame
+# warps; the features' gradient of all 6 feature warps through the shifted
+# adjoint
+SAFA_TRAIN_STEPS = 5  # timed, after 1 warm-up step
+K1_PER_SAFA_STEP, K1_GROUPED_PER_SAFA_STEP = 18, 12
+K2_PER_SAFA_STEP, K2_GROUPED_PER_SAFA_STEP = 6, 4
+ADJOINTS_PER_SAFA_STEP = 6
+SPAN_TRAIN_STEPS = 5  # SPAN x2 and x4 at batch 16, crop 192: timed, after 1 warm-up step
 
 
 def require(ok: bool, what: str) -> None:
@@ -594,12 +636,75 @@ def _recording(kw, recs: list):
     return recording
 
 
+def _recording_grad(kw, recs: list):
+    """K2's wrapper, recording each launch's inputs (cloned) in recs."""
+    real = kw.warp_windowed_grad
+
+    def recording(img, flow, t, ct, r=8, border="replicate", compute_dtype=torch.float32):
+        recs.append(dict(img=img.clone(), flow=flow.clone(),
+                         t=t.clone() if torch.is_tensor(t) else t, ct=ct.contiguous().clone(),
+                         r=r, border=border, compute_dtype=compute_dtype))
+        return real(img, flow, t, ct, r, border, compute_dtype)
+
+    return recording
+
+
+def compare_step_with_twins(kw, module, fixed: dict, make_step, label: str) -> None:
+    """The whole train step with the kernels against the same step with both
+    plain twins: same batch, same params (an optimizer with lr 0 leaves
+    them; the gradients compared are the step's, after its clip). cuDNN is
+    made deterministic for it: its algorithms may vary run to run, and the
+    warps can turn that into large gradient differences (the kernels' own
+    run-to-run difference is printed with default and with deterministic
+    cuDNN). Loss within 1e-5 relative, gradients within 1e-4 of each
+    tensor's largest."""
+    from vfisr_tpu_torch.train.train import TrainState
+
+    real_warp, real_grad = kw.warp_windowed, kw.warp_windowed_grad
+    probe = make_step(module, TrainState(torch.optim.AdamW(module.parameters(), lr=0.0),
+                                         lambda k: 0.0))
+
+    def loss_and_grads():
+        value = probe(fixed).item()
+        return value, {n: p.grad.clone() for n, p in module.named_parameters()}
+
+    def rel_err(a, b):
+        return max((a[n] - b[n]).abs().max().item() / max(b[n].abs().max().item(), 1e-30)
+                   for n in b)
+
+    loss_a, grads_a = loss_and_grads()
+    loss_b, grads_b = loss_and_grads()
+    print(f"{label} with kernels, twice, default cuDNN: loss {loss_a:.9f} vs {loss_b:.9f}, "
+          f"gradients {rel_err(grads_a, grads_b):.3e} of each tensor's largest")
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_k, grads_k = loss_and_grads()
+        loss_k2, grads_k2 = loss_and_grads()
+        kw.warp_windowed = lambda img, flow, t=1.0, r=8, border="replicate", \
+            compute_dtype=torch.float32: kw.warp_windowed_plain(img, flow, t, r, border,
+                                                                compute_dtype)
+        kw.warp_windowed_grad = kw.warp_windowed_grad_plain
+        try:
+            loss_p, grads_p = loss_and_grads()
+        finally:
+            kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
+    finally:
+        torch.backends.cudnn.deterministic = False
+    grad_err = rel_err(grads_k, grads_p)
+    print(f"{label} with kernels vs with plain twins (deterministic cuDNN): loss "
+          f"{loss_k:.9f} vs {loss_p:.9f}, gradients max error {grad_err:.3e} of each tensor's "
+          f"largest (tolerance: loss 1e-5 relative, gradients 1e-4); kernels vs kernels: loss "
+          f"{loss_k2:.9f}, gradients {rel_err(grads_k, grads_k2):.3e}")
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), f"{label} loss, kernels vs twins")
+    require(grad_err <= 1e-4, f"{label} gradients, kernels vs twins")
+
+
 def train_phase(kw, rife_npz: Path) -> tuple:
     """Step 8 of the module docstring. Returns K1's and K2's numbers over
     the counted train steps (``path_numbers``)."""
     from vfisr_tpu_torch.models.sota.rife import RIFEModel
     from vfisr_tpu_torch.train.device_data import device_synthetic_batch
-    from vfisr_tpu_torch.train.train import TrainState, create_train_state, make_train_step
+    from vfisr_tpu_torch.train.train import create_train_state, make_train_step
     from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax, params_to_jax, save_npz
 
     t0 = time.perf_counter()
@@ -624,14 +729,7 @@ def train_phase(kw, rife_npz: Path) -> tuple:
     # one step, every launch of both kernels recorded and counted
     real_warp, real_grad = kw.warp_windowed, kw.warp_windowed_grad
     rec1, rec2 = [], []
-
-    def rec_grad(img, flow, t, ct, r=8, border="replicate", compute_dtype=torch.float32):
-        rec2.append(dict(img=img.clone(), flow=flow.clone(),
-                         t=t.clone() if torch.is_tensor(t) else t, ct=ct.contiguous().clone(),
-                         r=r, border=border, compute_dtype=compute_dtype))
-        return real_grad(img, flow, t, ct, r, border, compute_dtype)
-
-    kw.warp_windowed, kw.warp_windowed_grad = _recording(kw, rec1), rec_grad
+    kw.warp_windowed, kw.warp_windowed_grad = _recording(kw, rec1), _recording_grad(kw, rec2)
     try:
         with origin_table_raises(kw):
             kw.launches = kw.grad_launches = 0
@@ -645,6 +743,7 @@ def train_phase(kw, rife_npz: Path) -> tuple:
     require(k2 == K2_PER_STEP and len(rec2) == k2, f"{k2} warp-gradient launches in a train step")
     require(loss == loss and abs(loss) < float("inf"), "finite loss")
     require_whole_c(kw, "train step", rec1)
+    require_whole_c(kw, "train step", rec2, grad=True)
     t0 = _phase("train_record", t0)
 
     # the kernels' origins, and the kernels against their plain twins, at
@@ -660,74 +759,14 @@ def train_phase(kw, rife_npz: Path) -> tuple:
     for j, a in enumerate(rec1):
         max_err1 = max(max_err1, check_warp(kw, f"train-step launch {j}", a))
 
-    # the whole step with the kernels against the same step with both plain
-    # twins: same batch, same params (an optimizer with lr 0 leaves them;
-    # the gradients compared are the step's, after its clip). cuDNN is
-    # made deterministic for it: its transposed convolution (the flow
-    # heads) may vary run to run, and the bf16 warp windows can turn that
-    # into large gradient differences (the kernels' own run-to-run
-    # difference is printed with default and with deterministic cuDNN)
-    fixed = batch()
-    probe = make_train_step(module, TrainState(torch.optim.AdamW(module.parameters(), lr=0.0),
-                                               lambda k: 0.0))
-
-    def loss_and_grads():
-        value = probe(fixed).item()
-        return value, {n: p.grad.clone() for n, p in module.named_parameters()}
-
-    def rel_err(a, b):
-        return max((a[n] - b[n]).abs().max().item() / max(b[n].abs().max().item(), 1e-30)
-                   for n in b)
-
-    loss_a, grads_a = loss_and_grads()
-    loss_b, grads_b = loss_and_grads()
-    print(f"train step with kernels, twice, default cuDNN: loss {loss_a:.9f} vs {loss_b:.9f}, "
-          f"gradients {rel_err(grads_a, grads_b):.3e} of each tensor's largest")
-    torch.backends.cudnn.deterministic = True
-    try:
-        loss_k, grads_k = loss_and_grads()
-        loss_k2, grads_k2 = loss_and_grads()
-        kw.warp_windowed = lambda img, flow, t=1.0, r=8, border="replicate", \
-            compute_dtype=torch.float32: kw.warp_windowed_plain(img, flow, t, r, border,
-                                                                compute_dtype)
-        kw.warp_windowed_grad = kw.warp_windowed_grad_plain
-        try:
-            loss_p, grads_p = loss_and_grads()
-        finally:
-            kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
-    finally:
-        torch.backends.cudnn.deterministic = False
-    grad_err = rel_err(grads_k, grads_p)
-    print(f"train step with kernels vs with plain twins (deterministic cuDNN): loss "
-          f"{loss_k:.9f} vs {loss_p:.9f}, gradients max error {grad_err:.3e} of each tensor's "
-          f"largest (tolerance: loss 1e-5 relative, gradients 1e-4); kernels vs kernels: loss "
-          f"{loss_k2:.9f}, gradients {rel_err(grads_k, grads_k2):.3e}")
-    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "train-step loss, kernels vs twins")
-    require(grad_err <= 1e-4, "train-step gradients, kernels vs twins")
+    compare_step_with_twins(kw, module, batch(), make_train_step, "train step")
     t0 = _phase("train_checks", t0)
 
     # the training path, counted and timed
-    step(batch())  # warm-up after the checks
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, losses = [], []
-    with origin_table_raises(kw):
-        kw.launches = kw.grad_launches = 0
-        for _ in range(TRAIN_STEPS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            loss = step(batch())
-            end.record()
-            end.synchronize()
-            step_ms.append(start.elapsed_time(end))
-            losses.append(loss.item())
-        k1_run, k2_run = kw.launches, kw.grad_launches
-    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    step_ms, losses, k1_run, k2_run, peak_mb = timed_steps(kw, step, batch, TRAIN_STEPS)
     require(k1_run == K1_PER_STEP * TRAIN_STEPS, f"{k1_run} warp launches in {TRAIN_STEPS} steps")
     require(k2_run == K2_PER_STEP * TRAIN_STEPS,
             f"{k2_run} warp-gradient launches in {TRAIN_STEPS} steps")
-    require(all(v == v and abs(v) < float("inf") for v in losses), "finite losses")
     data_ms = time_ms(batch, 5)
     ms = sum(step_ms) / len(step_ms)
     print(f"train full-width RIFE, batch {TRAIN_BATCH}, crop {TRAIN_CROP}, remat: ms/step {ms:.3f} "
@@ -750,29 +789,11 @@ def train_phase(kw, rife_npz: Path) -> tuple:
     print(f"save_npz round trip: {len(back)} arrays equal after load")
 
     # per launch shape: K2 then K1 at the training's shapes
-    totals = {}
-    for name, recs, timer in (("warp_windowed_grad", rec2, time_grad_launch),
-                              ("warp_windowed", rec1, time_launch)):
-        by_shape = shape_times(kw, recs, timer)
-        tot = dict(kernel=0.0, host=0.0, wrapper=0.0, plain=0.0, bound=0.0, library=0.0)
-        for key, v in by_shape.items():
-            print(f"train {name} shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} "
-                  f"r={key[3]} {key[4]} x{v['n']}/step: kernel {v['kernel']:.4f} ms, bound "
-                  f"{v['bound']:.4f} ms ({v['by']}), wrapper host {v['host']:.4f} ms, "
-                  f"wrapper {v['wrapper']:.4f} ms, plain "
-                  f"{v['plain']:.4f} ms, grid_sample{' grad' if recs is rec2 else ''} "
-                  f"{v['library']:.4f} ms")
-            for k in tot:
-                tot[k] += v["n"] * v[k]
-        tot["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
-        totals[name] = tot
-        print(f"train {name} per step: {sum(v['n'] for v in by_shape.values())} launches, kernel "
-              f"{tot['kernel']:.4f} ms, bound {tot['bound']:.4f} ms, wrapper host "
-              f"{tot['host']:.4f} ms, wrapper {tot['wrapper']:.4f} ms, plain {tot['plain']:.4f} "
-              f"ms, grid_sample {tot['library']:.4f} ms")
+    tot2 = per_shape_totals(kw, "train warp_windowed_grad", "step", rec2, time_grad_launch)
+    tot1 = per_shape_totals(kw, "train warp_windowed", "step", rec1, time_launch)
     _phase("train_timing", t0)
-    return (path_numbers(k1_run, max_err1, totals["warp_windowed"], TRAIN_STEPS),
-            path_numbers(k2_run, max_err2, totals["warp_windowed_grad"], TRAIN_STEPS))
+    return (path_numbers(k1_run, max_err1, tot1, TRAIN_STEPS),
+            path_numbers(k2_run, max_err2, tot2, TRAIN_STEPS))
 
 
 def adaptive_phase(kw) -> dict:
@@ -1055,14 +1076,15 @@ def adaptive_phase(kw) -> dict:
     return path_numbers(launches, max_err, total, 1)
 
 
-def require_whole_c(kw, label: str, recs: list) -> None:
-    """Every K1 launch of recs takes the whole-C layout (one channel
-    group): the kernel's instantiation without channel groups."""
-    plans = {shape_key(a): kw.plan(a["img"], a["r"], a["compute_dtype"]) for a in recs}
+def require_whole_c(kw, label: str, recs: list, grad: bool = False) -> None:
+    """Every K1 (grad: K2) launch of recs takes the whole-C layout (one
+    channel group): the kernel's instantiation without channel groups."""
+    name = "K2" if grad else "K1"
+    plans = {shape_key(a): kw.plan(a["img"], a["r"], a["compute_dtype"], grad) for a in recs}
     require(all(p is not None and p["grouped"] == 0 and p["groups"] == 1 for p in plans.values()),
-            f"{label}: every K1 launch takes the whole-C layout")
-    print(f"{label}: all {len(recs)} K1 launches ({len(plans)} shapes) take the whole-C layout "
-          f"(one channel group)")
+            f"{label}: every {name} launch takes the whole-C layout")
+    print(f"{label}: all {len(recs)} {name} launches ({len(plans)} shapes) take the whole-C "
+          f"layout (one channel group)")
 
 
 def grouped_cases(device) -> list:
@@ -1086,13 +1108,15 @@ def grouped_cases(device) -> list:
 
 
 def conv_calls(module, run) -> list:
-    """(name, conv, input shape) of every Conv2d call while run() runs,
-    in call order (forward hooks)."""
+    """(name, conv, input shape, cuDNN on) of every Conv2d call while run()
+    runs, in call order (forward hooks; the last: whether the path ran that
+    call's forward with cuDNN)."""
     calls, hooks = [], []
     for name, m in module.named_modules():
         if isinstance(m, torch.nn.Conv2d):
             hooks.append(m.register_forward_hook(
-                lambda mod, inp, out, name=name: calls.append((name, mod, tuple(inp[0].shape)))))
+                lambda mod, inp, out, name=name: calls.append(
+                    (name, mod, tuple(inp[0].shape), torch.backends.cudnn.enabled))))
     try:
         run()
     finally:
@@ -1110,42 +1134,58 @@ def conv_flop(conv, shape) -> int:
         conv.kernel_size[1]
 
 
-def time_convs(label: str, calls: list) -> dict:
+def time_convs(label: str, calls: list, backward: bool = False) -> dict:
     """Each distinct conv shape of calls, timed with cuDNN's heuristic plan
     and with cuDNN off (PyTorch's own convolution), with the peak memory of
-    each over what was resident; f32, TF32 off. Returns {name: (cudnn ms,
-    own ms)} for the first call of each shape."""
+    each over what was resident; f32, TF32 off. backward: also the
+    backward (input, weight and bias gradients of the same call), each
+    with cuDNN on and off. Prints the path's own forward choice. Returns
+    {name: (cudnn ms, own ms)} (forward) for the first call of each shape."""
     seen, out = {}, {}
-    dev = torch.device("cuda")
-    for name, conv, shape in calls:
+    dev = torch.device(DEVICE)
+    for name, conv, shape, path_cudnn in calls:
         key = (conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, shape)
         if key in seen:
             seen[key].append(name)
             continue
         seen[key] = [name]
-        feat = torch.rand(shape, device=dev)
+        feat = torch.rand(shape, device=dev, requires_grad=backward)
+        weight, bias = (v.detach().requires_grad_(backward) for v in (conv.weight, conv.bias))
+
+        def fwd():
+            return torch.nn.functional.conv2d(feat, weight, bias, conv.stride, conv.padding)
+
         res = []
-        with torch.no_grad():
+        with torch.set_grad_enabled(backward):
             for cudnn_on in (True, False):
                 torch.backends.cudnn.enabled = cudnn_on
                 try:
-                    conv(feat)
+                    y = fwd()
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
                     resident = torch.cuda.memory_allocated()
-                    ms = time_ms(lambda: conv(feat), 3, warmup=0)
+                    ms = time_ms(fwd, 3, warmup=0)
+                    bwd_ms = math.nan
+                    if backward:
+                        ct = torch.randn_like(y)
+                        bwd_ms = time_ms(lambda: torch.autograd.grad(
+                            y, (feat, weight, bias), ct, retain_graph=True), 3)
                     peak = (torch.cuda.max_memory_allocated() - resident) / 1e6
+                    del y
                 finally:
                     torch.backends.cudnn.enabled = True
-                res.append((ms, peak))
+                res.append((ms, bwd_ms, peak))
         del feat
         out[name] = (res[0][0], res[1][0])
         gflop = conv_flop(conv, shape) / 1e9
+        bwd = (f", backward {res[0][1]:.3f} ms / {res[1][1]:.3f} ms ({2 * gflop:.2f} GFLOP, f32 "
+               f"bound {2 * gflop / F32_FLOP_PER_S * 1e12:.3f} ms)") if backward else ""
         print(f"{label} conv {name} {tuple(shape)} {conv.in_channels}->{conv.out_channels} "
               f"k{conv.kernel_size[0]} s{conv.stride[0]}, f32, {gflop:.2f} GFLOP: cuDNN "
-              f"{res[0][0]:.3f} ms (peak {res[0][1]:.1f} MB over resident), cuDNN off "
-              f"{res[1][0]:.3f} ms (peak {res[1][1]:.1f} MB); f32 bound "
-              f"{gflop / F32_FLOP_PER_S * 1e12:.3f} ms")
+              f"{res[0][0]:.3f} ms (peak {res[0][2]:.1f} MB over resident), cuDNN off "
+              f"{res[1][0]:.3f} ms (peak {res[1][2]:.1f} MB); f32 bound "
+              f"{gflop / F32_FLOP_PER_S * 1e12:.3f} ms{bwd}; the path's forward: "
+              f"{'cuDNN' if path_cudnn else 'cuDNN off'}")
     for key, names in seen.items():
         if len(names) > 1:
             print(f"{label} conv shape of {names[0]} also: {', '.join(names[1:])}")
@@ -1293,7 +1333,7 @@ def safa_phase(kw) -> dict:
     tile_ms = time_ms(lambda: model.net(a3, b3, ts3), 3, warmup=0)
     tile_peak = (torch.cuda.max_memory_allocated() - resident) / 1e6
     calls = conv_calls(model.module, lambda: model.net(a3, b3, ts3))
-    tile_flop = sum(conv_flop(c, s) for _, c, s in calls)
+    tile_flop = sum(conv_flop(c, shp) for _, c, shp, _ in calls)
     n_tiles = -(-H // th) * -(-W // tw)
     print(f"safa tile forward {tuple(a3.shape)} x2 frames, batch {len(TS)}: {tile_ms:.3f} ms, peak "
           f"{tile_peak:.1f} MB over {resident / 1e6:.1f} MB resident; its {len(calls)} convs "
@@ -1356,7 +1396,7 @@ def span_phase(kw) -> None:
     peak = (torch.cuda.max_memory_allocated() - resident) / 1e6
     net_ms = time_ms(lambda: span.module(four), 3)
     calls = conv_calls(span.module, lambda: span.module(four))
-    flop = sum(conv_flop(c, s) for _, c, s in calls)
+    flop = sum(conv_flop(c, shp) for _, c, shp, _ in calls)
     print(f"span x2: 4 frames {W}x{H} -> {out_hw[1]}x{out_hw[0]} (upscale_batch: net, Lanczos4, "
           f"clip): {ms:.3f} ms ({ms / 4:.3f} per frame), the net alone {net_ms:.3f} ms, peak "
           f"{peak:.1f} MB over resident; convs {flop / 1e12:.4f} TFLOP (f32 bound "
@@ -1409,6 +1449,227 @@ def span_phase(kw) -> None:
           f"frames to {out_hw[1]}x{out_hw[0]}: {start.elapsed_time(end):.3f} ms (first call), route "
           f"{pipe.get_stats()}")
     _phase("adaptive_span", t0)
+
+
+def timed_steps(kw, step, batch, steps: int) -> tuple:
+    """steps train steps after one warm-up, each timed with CUDA events
+    (data and step), K1 and K2 counted from 0 with ``window_origins``
+    raising: (ms per step, losses, K1 launches, K2 launches, peak MB)."""
+    step(batch())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    with origin_table_raises(kw):
+        kw.launches = kw.grad_launches = 0
+        for _ in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(batch())
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(loss.item())
+        k1, k2 = kw.launches, kw.grad_launches
+    require(all(v == v and abs(v) < float("inf") for v in losses), "finite losses")
+    return step_ms, losses, k1, k2, torch.cuda.max_memory_allocated() / 1e6
+
+
+def per_shape_totals(kw, label: str, unit: str, recs: list, timer) -> dict:
+    """Per launch shape of recs: prints the timer's numbers, and returns
+    their totals over recs (each shape's numbers times its launches)."""
+    by_shape = shape_times(kw, recs, timer)
+    fields = ("kernel", "bound", "host", "wrapper", "plain", "library")
+    for key, v in by_shape.items():
+        a = next(r for r in recs if shape_key(r) == key)
+        pl = kw.plan(a["img"], a["r"], a["compute_dtype"], timer is time_grad_launch)
+        print(f"{label} shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} r={key[3]} "
+              f"{key[4]} x{v['n']}/{unit} ({'grouped' if pl['grouped'] else 'whole-C'}, "
+              f"{pl['groups']} group(s) of {pl['cg']}, {pl['ctas']} CTAs): kernel "
+              f"{v['kernel']:.4f} ms, bound {v['bound']:.4f} ms ({v['by']}), wrapper host "
+              f"{v['host']:.4f} ms, wrapper {v['wrapper']:.4f} ms, plain {v['plain']:.4f} ms, "
+              f"grid_sample{' grad' if timer is time_grad_launch else ''} {v['library']:.4f} ms")
+    tot = {f: sum(v["n"] * v[f] for v in by_shape.values()) for f in fields}
+    tot["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
+    print(f"{label} per {unit}: {len(recs)} launches, " + ", ".join(
+        f"{f} {tot[f]:.4f} ms" for f in fields))
+    return tot
+
+
+def train_safa_phase(kw) -> tuple:
+    """Step 13 of the module docstring. Returns K1's and K2's numbers over
+    the counted train steps (``path_numbers``)."""
+    from vfisr_tpu_torch.core import warp as core_warp
+    from vfisr_tpu_torch.models.sota.safa import SAFAModel
+    from vfisr_tpu_torch.train.__main__ import batch_maker
+    from vfisr_tpu_torch.train.train import create_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    npz = ROOT / "weights" / "safa.npz"
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    model = SAFAModel(device=DEVICE)
+    model.load(weights_path=str(npz))  # explicit path: strict
+    require(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32),
+            "TF32 off after SAFAModel.load")
+    module = model.trainable()
+    require(module.c == 176 and module.num_dec_blocks == 8 and module.training
+            and all(p.requires_grad for p in module.parameters()), "full-width SAFA, trainable")
+    state = create_train_state(module.parameters(), learning_rate=TRAIN_LR,
+                               total_steps=SAFA_TRAIN_STEPS + 1)
+    step = make_train_step(module, state)  # remat on, as scripts/train.py
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    batch = batch_maker("safa", gen, TRAIN_BATCH, TRAIN_CROP, TRAIN_DETAIL)
+    b = batch()
+    require(tuple(b["img0"].shape) == (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3)
+            and tuple(b["gt"].shape) == (TRAIN_BATCH, 2 * TRAIN_CROP, 2 * TRAIN_CROP, 3),
+            "SAFA batch: endpoints at the crop, the midpoint at 2x")
+    print(f"train safa: {sum(p.numel() for p in module.parameters())} parameters, batch "
+          f"{TRAIN_BATCH}, crop {TRAIN_CROP} (scenes and gt at {2 * TRAIN_CROP}), remat")
+    t0 = _phase("train_safa_load", t0)
+
+    # one step, every launch of both kernels and every shifted adjoint
+    # recorded and counted
+    real_warp, real_grad = kw.warp_windowed, kw.warp_windowed_grad
+    real_adj = core_warp.warp_transpose_shifted
+    rec1, rec2, rec_adj = [], [], []
+
+    def rec_adjoint(ct, flow, t=1.0, border="replicate", max_disp=8):
+        rec_adj.append(dict(ct=ct.clone(), flow=flow.clone(), t=t, border=border,
+                            max_disp=max_disp))
+        return real_adj(ct, flow, t, border, max_disp)
+
+    kw.warp_windowed, kw.warp_windowed_grad = _recording(kw, rec1), _recording_grad(kw, rec2)
+    core_warp.warp_transpose_shifted = rec_adjoint
+    try:
+        with origin_table_raises(kw):
+            kw.launches = kw.grad_launches = 0
+            loss = step(batch()).item()
+            k1, k2 = kw.launches, kw.grad_launches
+    finally:
+        kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
+        core_warp.warp_transpose_shifted = real_adj
+    grouped1 = [a for a in rec1 if kw.plan(a["img"], a["r"], a["compute_dtype"])["grouped"]]
+    grouped2 = [a for a in rec2
+                if kw.plan(a["img"], a["r"], a["compute_dtype"], grad=True)["grouped"]]
+    print(f"one safa train step: K1 {k1} launches ({len(grouped1)} in channel groups, "
+          f"{k1 - len(grouped1)} whole-C), K2 {k2} launches ({len(grouped2)} in channel groups at "
+          f"C = {sorted({a['img'].shape[-1] for a in grouped2})}, {k2 - len(grouped2)} whole-C), "
+          f"{len(rec_adj)} shifted adjoints, loss {loss:.6f}")
+    require(k1 == K1_PER_SAFA_STEP and len(rec1) == k1, f"{k1} K1 launches in a SAFA train step")
+    require(k2 == K2_PER_SAFA_STEP and len(rec2) == k2, f"{k2} K2 launches in a SAFA train step")
+    require(len(grouped1) == K1_GROUPED_PER_SAFA_STEP and len(grouped2) == K2_GROUPED_PER_SAFA_STEP
+            and all(a["img"].shape[-1] == 176 for a in grouped1 + grouped2),
+            "SAFA's feature warps take channel groups at 176 channels, in K1 and K2")
+    require(len(rec_adj) == ADJOINTS_PER_SAFA_STEP, f"{len(rec_adj)} shifted adjoints")
+    require(loss == loss and abs(loss) < float("inf"), "finite loss")
+    t0 = _phase("train_safa_record", t0)
+
+    # origins, K2 and K1 against their twins at every launch of the step;
+    # K2 at synthetic cases of each of its shapes; grouped K2 twice, the
+    # same bits
+    for j, a in enumerate(rec1 + rec2):
+        check_origins(kw, f"safa train launch {j}", a)
+    max_err2 = 0.0
+    for j, a in enumerate(rec2):
+        max_err2 = max(max_err2, check_warp_grad(kw, f"safa train launch {j}", a))
+    for a in grad_cases(rec2):
+        max_err2 = max(max_err2, check_warp_grad(kw, f"safa train {a['name']}", a))
+    max_err1 = 0.0
+    for j, a in enumerate(rec1):
+        max_err1 = max(max_err1, check_warp(kw, f"safa train launch {j}", a))
+    for j, a in enumerate(grouped2):
+        args = (a["img"], a["flow"], a["t"], a["ct"], a["r"], a["border"], a["compute_dtype"])
+        x, y = kw.warp_windowed_grad(*args), kw.warp_windowed_grad(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+        print(f"grouped K2 twice, safa train launch {j} {_label(a)}: "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        require(same, "grouped K2 deterministic")
+    compare_step_with_twins(kw, module, batch(), make_train_step, "safa train step")
+    t0 = _phase("train_safa_checks", t0)
+
+    # the training path, counted and timed
+    step_ms, losses, k1_run, k2_run, peak_mb = timed_steps(kw, step, batch, SAFA_TRAIN_STEPS)
+    require(k1_run == K1_PER_SAFA_STEP * SAFA_TRAIN_STEPS,
+            f"{k1_run} K1 launches in {SAFA_TRAIN_STEPS} SAFA steps")
+    require(k2_run == K2_PER_SAFA_STEP * SAFA_TRAIN_STEPS,
+            f"{k2_run} K2 launches in {SAFA_TRAIN_STEPS} SAFA steps")
+    ms = sum(step_ms) / len(step_ms)
+    data_ms = time_ms(batch, 3)
+    print(f"train safa, batch {TRAIN_BATCH}, crop {TRAIN_CROP}, remat: ms/step {ms:.3f} (data + "
+          f"step; steps: {', '.join(f'{x:.3f}' for x in step_ms)}); samples/s "
+          f"{TRAIN_BATCH * 1000.0 / ms:.2f}; data alone {data_ms:.3f} ms; max_memory_allocated "
+          f"{peak_mb:.1f} MB; {k1_run} K1 and {k2_run} K2 launches; losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}")
+    t0 = _phase("train_safa_main", t0)
+
+    # the shifted adjoint per call, at the recorded step's inputs
+    adj_ms = []
+    for a in rec_adj:
+        adj_ms.append(time_ms(lambda: real_adj(**a), 3))
+        fl = a["flow"].float()
+        print(f"safa train shifted adjoint {tuple(a['ct'].shape)} max_disp {a['max_disp']}, flow "
+              f"{fl.min().item():.3f} to {fl.max().item():.3f}: {adj_ms[-1]:.3f} ms")
+    print(f"safa train shifted adjoint per step: {len(adj_ms)} calls, {sum(adj_ms):.3f} ms "
+          f"({100.0 * sum(adj_ms) / ms:.1f}% of the {ms:.3f} ms step)")
+
+    # where a step's time goes: each conv shape forward and backward, with
+    # cuDNN and without (the path's forward choice printed)
+    fixed = batch()
+    with torch.no_grad():
+        calls = conv_calls(module, lambda: module(fixed["img0"], fixed["img1"], fixed["t"]))
+    flop = sum(conv_flop(c, shp) for _, c, shp, _ in calls)
+    print(f"train safa forward: {len(calls)} convs, {flop / 1e12:.4f} TFLOP (f32 bound "
+          f"{flop / F32_FLOP_PER_S * 1e3:.3f} ms); a step with remat runs them twice and their "
+          f"backward: about {4 * flop / 1e12:.4f} TFLOP, f32 bound "
+          f"{4 * flop / F32_FLOP_PER_S * 1e3:.3f} ms")
+    time_convs("train safa", calls, backward=True)
+    t0 = _phase("train_safa_breakdown", t0)
+
+    tot2 = per_shape_totals(kw, "train safa K2", "step", rec2, time_grad_launch)
+    tot1 = per_shape_totals(kw, "train safa K1", "step", rec1, time_launch)
+    _phase("train_safa_timing", t0)
+    return (path_numbers(k1_run, max_err1, tot1, SAFA_TRAIN_STEPS),
+            path_numbers(k2_run, max_err2, tot2, SAFA_TRAIN_STEPS))
+
+
+def train_span_phase(kw) -> None:
+    """Step 14 of the module docstring."""
+    from vfisr_tpu_torch.models.sota.span import SPANModel
+    from vfisr_tpu_torch.train.__main__ import SR_SCALE, batch_maker
+    from vfisr_tpu_torch.train.train import create_train_state, make_sr_train_step
+
+    for name, scale in SR_SCALE.items():
+        t0 = time.perf_counter()
+        model = SPANModel(scale=scale, device=DEVICE)
+        model.load(weights_path=str(ROOT / "weights" / f"span_x{scale}.npz"))  # strict
+        module = model.trainable()
+        state = create_train_state(module.parameters(), learning_rate=TRAIN_LR,
+                                   total_steps=SPAN_TRAIN_STEPS + 1)
+        step = make_sr_train_step(module, state)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        batch = batch_maker(name, gen, TRAIN_BATCH, TRAIN_CROP, TRAIN_DETAIL)
+        b = batch()
+        lr_hw = TRAIN_CROP // scale
+        require(tuple(b["lr"].shape) == (TRAIN_BATCH, lr_hw, lr_hw, 3)
+                and tuple(b["hr"].shape) == (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3),
+                f"{name} batch shapes")
+        step_ms, losses, k1, k2, peak_mb = timed_steps(kw, step, batch, SPAN_TRAIN_STEPS)
+        require(k1 == 0 and k2 == 0, f"{name} training launches no warp ({k1}, {k2})")
+        ms = sum(step_ms) / len(step_ms)
+        with torch.no_grad():
+            calls = conv_calls(module, lambda: module(b["lr"]))
+        flop = sum(conv_flop(c, shp) for _, c, shp, _ in calls)
+        print(f"train {name} (x{scale}), batch {TRAIN_BATCH}, crop {TRAIN_CROP} (lr {lr_hw}), no "
+              f"remat: ms/step {ms:.3f} (data + step; steps: "
+              f"{', '.join(f'{x:.3f}' for x in step_ms)}); samples/s "
+              f"{TRAIN_BATCH * 1000.0 / ms:.2f}; max_memory_allocated {peak_mb:.1f} MB; forward "
+              f"{flop / 1e12:.4f} TFLOP, a step about {3 * flop / 1e12:.4f} TFLOP (f32 bound "
+              f"{3 * flop / F32_FLOP_PER_S * 1e3:.3f} ms); losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)}")
+        time_convs(f"train {name}", calls, backward=True)
+        del model, module, state, step
+        _phase(f"train_{name}", t0)
 
 
 def main() -> int:
@@ -1588,12 +1849,14 @@ def main() -> int:
     k1_adaptive = adaptive_phase(kw)
     k1_safa = safa_phase(kw)
     span_phase(kw)
+    k1_safa_train, k2_safa_train = train_safa_phase(kw)
+    train_span_phase(kw)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
     print(json.dumps({"kernels": [
-        kernel_entry("warp_windowed", [k1_flagship, k1_train, k1_adaptive, k1_safa]),
-        kernel_entry("warp_windowed_grad", [k2_train])]}))
+        kernel_entry("warp_windowed", [k1_flagship, k1_train, k1_adaptive, k1_safa, k1_safa_train]),
+        kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -248,8 +248,11 @@ def test_warp_kernel_channel_groups_unaligned_image(c):
 @pytest.mark.cuda
 def test_plans_of_the_paths_and_k2_refusal():
     """The flagship's, training's and adaptive path's K1 launches keep the
-    whole-C layout; K1 at 176 channels takes groups; K2 refuses a window
-    it cannot hold whole, before it launches."""
+    whole-C layout; K1 and K2 at 176 channels take groups (SAFA's feature
+    warps at a 1080p tile and at the training crop); K2 at the RIFE
+    training's shapes keeps the whole-C layout. K2 refuses nothing it used
+    to take, and no longer refuses a window it cannot hold whole: it
+    launches once there."""
     _needs_card()
     f32, bf = torch.float32, torch.bfloat16
     for shape, dt, r, cd in [((2, 1088, 1920, 3), bf, (3, 4), bf), ((1, 1080, 1920, 5), f32, 8, f32),
@@ -258,10 +261,76 @@ def test_plans_of_the_paths_and_k2_refusal():
         img = torch.empty(shape, dtype=dt, device="cuda")
         pl = tw.plan(img, r, cd)
         assert pl is not None and pl["grouped"] == 0 and pl["groups"] == 1, (shape, pl)
-    img = torch.rand((3, 114, 144, 176), device="cuda")
-    assert tw.plan(img, 8, f32)["grouped"] == 1 and tw.plan(img, 8, f32, grad=True) is None
-    flow = torch.zeros((3, 114, 144, 2), device="cuda")
+    for shape, r, cd in [((16, 192, 192, 3), (4, 6), bf), ((16, 96, 96, 3), (2, 4), bf),
+                         ((16, 192, 192, 3), 8, f32)]:
+        pl = tw.plan(torch.empty(shape, device="cuda"), r, cd, grad=True)
+        assert pl is not None and pl["grouped"] == 0 and pl["groups"] == 1, (shape, pl)
+    for shape in [(3, 114, 144, 176), (16, 48, 48, 176)]:
+        img = torch.rand(shape, device="cuda")
+        assert tw.plan(img, 8, f32)["grouped"] == 1
+        pl = tw.plan(img, 8, f32, grad=True)
+        assert pl is not None and pl["grouped"] == 1 and pl["groups"] * pl["cg"] >= 176, pl
+    flow = torch.zeros((16, 48, 48, 2), device="cuda")
     before = tw.grad_launches
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 7"):
-        tw.warp_windowed_grad(img, flow, 1.0, torch.ones_like(img), 8, "replicate", f32)
-    assert tw.grad_launches == before
+    gflow, cg = tw.warp_windowed_grad(img, flow, 1.0, torch.ones_like(img), 8, "replicate", f32)
+    torch.cuda.synchronize()
+    assert tw.grad_launches == before + 1 and bool(torch.isfinite(cg).all())
+
+
+# K2 past the channels one window holds (10 at f32, r = 8): channel groups,
+# at SAFA's training feature shape (16x48x48) and a ragged 3-tile-wide image
+GROUPED_C_K2 = (11, 16, 33, 176)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", GROUPED_C_K2)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("border", ["replicate", "constant"])
+@pytest.mark.parametrize("n,h,w", [(16, 48, 48), (1, 70, 530)])
+def test_warp_grad_kernel_channel_groups_match_plain(n, h, w, border, dt, c):
+    """Grouped K2 against its twin: each group's partial sums in channel
+    order, the groups added in order, so within f32 rounding of the twin's
+    sum (tolerances as above, relative to the largest |cg|); a per-batch t
+    and a non-contiguous cotangent, as autograd hands it."""
+    _needs_card()
+    rng = np.random.default_rng(100 + c)
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda()
+    flow = torch.from_numpy(np.clip(smooth_flow(rng, n, h, w, 6.0, 3.0), -8, 8)).cuda()
+    t = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).cuda()
+    ct = torch.from_numpy(rng.normal(0, 1, (n, c, h, w)).astype(np.float32)).cuda()
+    ct = ct.permute(0, 2, 3, 1)
+    pl = tw.plan(img, 8, dt, grad=True)
+    assert pl is not None and pl["grouped"] == 1 and pl["groups"] * pl["cg"] >= c, pl
+    before = tw.grad_launches
+    gflow, cg = tw.warp_windowed_grad(img, flow, t, ct, 8, border, dt)
+    ref_gflow, ref_cg = tw.warp_windowed_grad_plain(img, flow, t, ct, 8, border, dt)
+    torch.cuda.synchronize()
+    assert tw.grad_launches == before + 1
+    scale = ref_cg.abs().max().item()
+    assert scale > 0
+    assert (cg - ref_cg).abs().max().item() <= TOL[dt] * scale
+    assert (gflow - ref_gflow).abs().max().item() <= TOL[dt] * scale * 1.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 176])
+def test_warp_grad_kernel_channel_groups_deterministic(c):
+    """Two identical grouped K2 launches give the same bits (no atomics),
+    also from an image view 4 bytes past a 16-byte boundary (element by
+    element copies), which matches the aligned image's result exactly."""
+    _needs_card()
+    rng = np.random.default_rng(c)
+    n, h, w = 16, 48, 48
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda()
+    shifted = torch.empty(n * h * w * c + 1, device="cuda")[1:].view(n, h, w, c)
+    shifted.copy_(img)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    flow = torch.from_numpy(np.clip(smooth_flow(rng, n, h, w, 6.0, 3.0), -8, 8)).cuda()
+    ct = torch.from_numpy(rng.normal(0, 1, (n, h, w, c)).astype(np.float32)).cuda()
+    a = tw.warp_windowed_grad(img, flow, 1.0, ct, 8, "replicate", torch.float32)
+    b = tw.warp_windowed_grad(img, flow, 1.0, ct, 8, "replicate", torch.float32)
+    u = tw.warp_windowed_grad(shifted, flow, 1.0, ct, 8, "replicate", torch.float32)
+    torch.cuda.synchronize()
+    assert tw.plan(img, 8, torch.float32, grad=True)["grouped"] == 1
+    for x, y in ((a, b), (a, u)):
+        assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])

@@ -236,7 +236,7 @@ def test_cli_refusals(monkeypatch):
     with pytest.raises(SystemExit, match="already exists"):
         tcli.main(["--model", "rife", "--steps", "1", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not ported"):
-        tcli.main(["--model", "safa", "--device", "cpu"])
+        tcli.main(["--model", "vfimamba", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not\\s+ported"):
         tcli.main(["--model", "rife", "--data", "data/processed", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -10,9 +10,16 @@ Two semantics:
 - *exact*: ``flow_warp``, a four-tap bilinear gather. What the JAX package
   runs off the TPU (its ``default_warp_backend`` returns 'gather' there),
   so the default for CPU tensors.
+
+The windowed warp's image cotangent (``img_grad``) is autograd of the exact
+warp ('gather', whose backward is a scatter: atomic on CUDA) or the dense
+shifted adjoint ``warp_transpose_shifted`` ('shifted:R', deterministic; for
+trainable feature warps whose flows are clamped to +-R, as SAFA's are).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -100,14 +107,16 @@ class _WindowedWarp(torch.autograd.Function):
     from the module at each call). backward: the flow and t gradients from
     K2 (``warp_windowed_grad``; each output pixel depends on its own flow
     only, so no scatter); the image cotangent, where img needs one, as the
-    reference takes it: autograd of the exact ``flow_warp``. Saves the
-    inputs, not the output, so ``torch.utils.checkpoint`` recomputes the
-    warp.
+    reference takes it for ``img_grad``: autograd of the exact
+    ``flow_warp`` ('gather') or ``warp_transpose_shifted`` ('shifted:R').
+    Saves the inputs, not the output, so ``torch.utils.checkpoint``
+    recomputes the warp.
     """
 
     @staticmethod
-    def forward(ctx, img, flow, t, radius, border, compute_dtype):
+    def forward(ctx, img, flow, t, radius, border, compute_dtype, img_grad="gather"):
         ctx.radius, ctx.border, ctx.compute_dtype = radius, border, compute_dtype
+        ctx.img_grad = img_grad
         ctx.t_const = None if torch.is_tensor(t) else t
         ctx.save_for_backward(img, flow, t if torch.is_tensor(t) else None)
         return _kernels.warp_windowed(img, flow, t, r=radius, border=border,
@@ -128,28 +137,109 @@ class _WindowedWarp(torch.autograd.Function):
                 g_t = (per_batch if t.numel() == img.shape[0] else per_batch.sum())
                 g_t = g_t.reshape(t.shape).to(t.dtype)
         if need_img:
-            with torch.enable_grad():
-                x = img.detach().requires_grad_(True)
-                tt = t.detach().reshape(-1, 1, 1) if torch.is_tensor(t) else t
-                out = flow_warp(x, flow.detach(), tt, border=ctx.border)
-                (g_img,) = torch.autograd.grad(out, x, ct)
-        return g_img, g_flow, g_t, None, None, None
+            if ctx.img_grad == "gather":
+                with torch.enable_grad():
+                    x = img.detach().requires_grad_(True)
+                    tt = t.detach().reshape(-1, 1, 1) if torch.is_tensor(t) else t
+                    out = flow_warp(x, flow.detach(), tt, border=ctx.border)
+                    (g_img,) = torch.autograd.grad(out, x, ct)
+            else:
+                g_img = warp_transpose_shifted(ct, flow, t, ctx.border,
+                                               _shift_radius(ctx.img_grad)).to(img.dtype)
+        return g_img, g_flow, g_t, None, None, None, None
+
+
+def _shift_radius(img_grad: str) -> int:
+    """R of 'shifted:R' ('shifted' alone: 8, as the reference reads it)."""
+    return int(img_grad.split(":")[1]) if ":" in img_grad else 8
+
+
+def warp_transpose_shifted(ct: torch.Tensor, flow: torch.Tensor, t=1.0,
+                           border: str = "replicate", max_disp: int = 8) -> torch.Tensor:
+    """The adjoint of the bilinear backward warp by t*flow, with no
+    gather or scatter (port of ``vfisr_tpu/core/warp.py::
+    warp_transpose_shifted``): exact against the gather warp's image
+    cotangent wherever |t*flow| <= max_disp.
+
+    gimg[q] = sum over offsets o of ct[q+o] * hat(dy[q+o] + o_y) *
+    hat(dx[q+o] + o_x), where (dy, dx) is each pixel's displacement after
+    the border clip and hat(d) = max(0, 1 - |d|): a pixel within max_disp
+    of q reaches it only from offsets |o| <= max_disp + 1, so the sum runs
+    over (2*max_disp + 3)^2 shifted multiply-adds, as the reference's does,
+    in its order. Offsets whose hat is 0 at every pixel add exactly 0 and
+    are skipped: the displacements' range (one read-back to the host per
+    call) bounds the offsets that can reach. Each offset's weight is formed
+    once on [N,H,W] and added in place over the channels
+    (``addcmul_``). ct [N,H,W,C], flow [N,H,W,2] (dx, dy), t a number or
+    [N]; returns ct's dtype.
+    """
+    n, h, w, c = ct.shape
+    big_r = int(max_disp) + 1
+    dt = torch.promote_types(ct.dtype, torch.float32)
+    tt = t.to(dt).reshape(-1, 1, 1) if torch.is_tensor(t) else t
+    ys = torch.arange(h, device=ct.device, dtype=dt).view(1, h, 1)
+    xs = torch.arange(w, device=ct.device, dtype=dt).view(1, 1, w)
+    sy = ys + flow[..., 1].to(dt) * tt
+    sx = xs + flow[..., 0].to(dt) * tt
+    if border == "replicate":
+        sy = sy.clamp(0.0, h - 1.0)
+        sx = sx.clamp(0.0, w - 1.0)
+    dy, dx = sy - ys, sx - xs  # [N,H,W] each
+    ctf = ct.to(dt)
+    acc = torch.zeros((n, h, w, c), dtype=dt, device=ct.device)
+    # reach[k]: the shifts s in [-R, R] (source p = q + s) whose hat can be
+    # nonzero: a pixel at displacement d reaches q = p - s where |d + s| < 1,
+    # so for d in [lo, hi], s in [-ceil(hi), -floor(lo)] (1 is a float, so
+    # d + s rounds to magnitude 1 or more wherever it is that exactly)
+    lo_hi = torch.stack([dy.amin(), dy.amax(), dx.amin(), dx.amax()]).tolist()
+    reach = []
+    for lo, hi in (lo_hi[:2], lo_hi[2:]):
+        if not (math.isfinite(lo) and math.isfinite(hi)):
+            reach.append(range(big_r, -big_r - 1, -1))
+            continue
+        reach.append(range(min(big_r, -math.floor(lo)), max(-big_r, -math.ceil(hi)) - 1, -1))
+
+    def hat(d, s):
+        return torch.clamp(1.0 - (d + s).abs(), min=0.0)
+
+    hx = {s_x: hat(dx, s_x) for s_x in reach[1]}
+    for s_y in reach[0]:  # the reference's order: oy = R - s_y ascending
+        qy0, qy1 = max(0, -s_y), min(h, h - s_y)
+        if qy1 <= qy0:
+            continue
+        py = slice(qy0 + s_y, qy1 + s_y)
+        hy = hat(dy[:, py], s_y)
+        for s_x in reach[1]:
+            qx0, qx1 = max(0, -s_x), min(w, w - s_x)
+            if qx1 <= qx0:
+                continue
+            px = slice(qx0 + s_x, qx1 + s_x)
+            wgt = hy[:, :, px] * hx[s_x][:, py, px]
+            acc[:, qy0:qy1, qx0:qx1].addcmul_(ctf[:, py, px], wgt[..., None])
+    return acc.to(ct.dtype)
 
 
 def backward_warp(img: torch.Tensor, flow: torch.Tensor, t=1.0, border: str = "constant",
                   backend: str | None = None, radius=8,
-                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  compute_dtype: torch.dtype = torch.float32,
+                  img_grad: str = "gather") -> torch.Tensor:
     """Backend-dispatched backward warp: the windowed kernel or the exact
     gather. The two agree wherever a pixel's displacement stays within
     ``radius`` of its tile's mean. The reflect border always takes the
     exact path (the windowed kernel has replicate and constant only).
-    Both are differentiable in img, flow and a tensor t."""
+    Both are differentiable in img, flow and a tensor t. img_grad: the
+    windowed warp's image cotangent, 'gather' (autograd of the exact warp)
+    or 'shifted:R' (``warp_transpose_shifted``, exact for |t*flow| <= R;
+    deterministic on CUDA, where the gather's scatter is atomic); the exact
+    backend ignores it, as the reference's gather backend does."""
+    if img_grad != "gather" and not img_grad.startswith("shifted"):
+        raise ValueError(f"img_grad must be 'gather' or 'shifted:R'; got {img_grad!r}")
     backend = backend or default_warp_backend(img.device)
     if border == "reflect":
         backend = "exact"
     if backend == "windowed":
         return _WindowedWarp.apply(img.contiguous(), flow.contiguous(), t, radius, border,
-                                   compute_dtype)
+                                   compute_dtype, img_grad)
     if backend != "exact":
         raise ValueError(f"unknown warp backend {backend!r}")
     return flow_warp(img, flow, t, border=border)

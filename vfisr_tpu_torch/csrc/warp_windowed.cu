@@ -51,7 +51,7 @@
 // rounding steps and their order are those of the plain twin
 // (ops/cuda/warp.py::warp_windowed_plain).
 //
-// Channel groups (K1 only). A window of all C channels that fits in shared
+// Channel groups (K1). A window of all C channels that fits in shared
 // memory at 4 rows per CTA takes the layout above, unchanged (K1's kGrouped
 // = false instantiation is the kernel without groups). A wider one
 // (SAFA's 176-channel feature warps: K1 took at most 9 channels at f32, r =
@@ -63,9 +63,18 @@
 // (else element by element), and writes its group's channels of each output
 // pixel directly (a run of cg channels; staging buys no longer run). The
 // per-channel arithmetic is the same, so a grouped launch gives the same
-// bits as the whole-C one and the plain twin. K2 sums its channels in order
-// inside a thread, so it is not grouped: plan() refuses a K2 that does not
-// fit whole.
+// bits as the whole-C one and the plain twin.
+//
+// K2 in channel groups (kGrouped, the same plan as K1's). K2 sums ct * d/ds
+// over channels in f32, in channel order inside a thread; a group's CTA can
+// only sum its own channels. So each CTA writes its group's partial sums
+// (x, y) to an f32 scratch [groups, n, h, w, 2], in channel order inside the
+// group, and a second small kernel (grad_groups_sum_kernel) adds the groups
+// in group order and writes cg and grad_flow = cg * t. No atomics: two
+// identical launches give the same bits. The sum's order differs from the
+// whole-C launch's, so the grouped result equals the twin's within f32
+// rounding, not bit for bit. The whole-C instantiation (kGrouped = false)
+// is the kernel without groups, unchanged.
 //
 // Plain C interface, no PyTorch headers: built by nvcc into a shared
 // library and loaded with ctypes. Each entry returns a cudaError_t: of the
@@ -543,31 +552,37 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // (the Pallas output's cast), multiplied by the cotangent and summed over
 // channels in f32, in channel order: cg = (d loss/d sx, d loss/d sy), and
 // grad_flow = cg * t. The cotangent is read kCt channels of a row group at
-// a time, all in flight together.
+// a time, all in flight together. kGrouped: the CTA sums its group's
+// channels only and writes the partial sums to cg[group] (cg is then the
+// [groups, n, h, w, 2] scratch; grad_flow is not written), for
+// grad_groups_sum_kernel to add.
 constexpr int kCt = 4;
 
-template <typename TI, typename TF, bool kBf16, bool kConstant>
+template <typename TI, typename TF, bool kBf16, bool kConstant, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     warp_windowed_grad_kernel(const TI* __restrict__ img, const TF* __restrict__ flow,
                               const float* __restrict__ t, const TI* __restrict__ ct,
                               TF* __restrict__ grad_flow, float* __restrict__ cg, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float2 part[kWarps];
-  const Place c = place<false>(p);
+  const Place c = place<kGrouped>(p);
   const float tn = batch_t(t, p, c.n);
   const int2 o = tile_origin<TF, kBf16>(flow, tn, p, c.n, c.ty, c.tx, part);
   if (c.rows_n <= 0) return;
   const int sub = threadIdx.x / p.lanes, cols = threadIdx.x - sub * p.lanes;
   const int x = c.tx * kTw + cols;
   const bool live = sub < p.subrows && x < p.w;
-  const Window wd = window_of(smem, o, p.c, static_cast<int>(sizeof(TI)), p);
+  // the CTA's channels: all C, or its group's [c0, c0 + cn)
+  const int cn = kGrouped ? c.cn : p.c;
+  const int ch0 = kGrouped ? c.c0 : 0;
+  const Window wd = window_of(smem, o, cn, static_cast<int>(sizeof(TI)), p);
   const size_t pix0 = (static_cast<size_t>(c.n) * p.h + c.y0) * p.w + x;  // row 0 of the slice
   const TF* fl = flow + pix0 * 2;
   const int step = kGroup * p.subrows;
   float fx[kGroup], fy[kGroup];
   load_flow(fl, sub, c.rows_n, live, p, fx, fy);
-  fill_window<TI, kConstant, false>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c, wd.win,
-                                    wd.row_off, o.y + c.row0, wd.xa, wd.xb, 0, p.c, p);
+  fill_window<TI, kConstant, kGrouped>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c, wd.win,
+                                       wd.row_off, o.y + c.row0, wd.xa, wd.xb, ch0, cn, p);
   __syncthreads();
   if (sub >= p.subrows) return;
   for (int r = sub; r < c.rows_n; r += step) {
@@ -576,15 +591,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     float2 acc[kGroup];
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) acc[g] = make_float2(0.f, 0.f);
-    for (int c0 = 0; c0 < p.c; c0 += kCt) {
+    for (int c0 = 0; c0 < cn; c0 += kCt) {
       float cv[kGroup][kCt];
 #pragma unroll
       for (int g = 0; g < kGroup; ++g)
 #pragma unroll
         for (int u = 0; u < kCt; ++u) {
           const int rg = r + g * p.subrows;
-          const bool ok = live && rg < c.rows_n && c0 + u < p.c;
-          cv[g][u] = ok ? ld(ct + (pix0 + static_cast<size_t>(rg) * p.w) * p.c + c0 + u) : 0.f;
+          const bool ok = live && rg < c.rows_n && c0 + u < cn;
+          cv[g][u] = ok ? ld(ct + (pix0 + static_cast<size_t>(rg) * p.w) * p.c + ch0 + c0 + u)
+                        : 0.f;
         }
 #pragma unroll
       for (int g = 0; g < kGroup; ++g) {
@@ -599,7 +615,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         const Taps q = taps_at<kConstant>(s, wd.row_off, wd.xc0, wd.xa, wd.xb, wd.px, p);
 #pragma unroll
         for (int u = 0; u < kCt; ++u) {
-          if (c0 + u >= p.c) break;
+          if (c0 + u >= cn) break;
           float v[2][2];
           tap_values<TI, kBf16>(wd.win, q, c0 + u, v);
           // d out/d sy: vertical dhat over the interp rows
@@ -621,8 +637,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int g = 0; g < kGroup; ++g) {
       if (!live || r + g * p.subrows >= c.rows_n) continue;
       const size_t pix = pix0 + static_cast<size_t>(r + g * p.subrows) * p.w;
-      reinterpret_cast<float2*>(cg)[pix] = acc[g];
-      st_pair(grad_flow + pix * 2, __fmul_rn(acc[g].x, tn), __fmul_rn(acc[g].y, tn));
+      if constexpr (kGrouped) {
+        const size_t npix = static_cast<size_t>(p.n) * p.h * p.w;
+        reinterpret_cast<float2*>(cg)[static_cast<size_t>(ch0 / p.cg) * npix + pix] = acc[g];
+      } else {
+        reinterpret_cast<float2*>(cg)[pix] = acc[g];
+        st_pair(grad_flow + pix * 2, __fmul_rn(acc[g].x, tn), __fmul_rn(acc[g].y, tn));
+      }
     }
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
@@ -630,6 +651,27 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       fy[g] = nfy[g];
     }
   }
+}
+
+// K2 in channel groups, second pass: one thread per pixel adds the groups'
+// partial sums part[groups, n, h, w] in group order, then writes cg and
+// grad_flow = cg * t as the whole-C kernel does.
+template <typename TF>
+__global__ void __launch_bounds__(kThreads)
+    grad_groups_sum_kernel(const float2* __restrict__ part, const float* __restrict__ t,
+                           TF* __restrict__ grad_flow, float2* __restrict__ cg, Params p) {
+  const size_t hw = static_cast<size_t>(p.h) * p.w, npix = hw * p.n;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= npix) return;
+  float2 s = part[i];
+  for (int g = 1; g < p.groups; ++g) {
+    const float2 v = part[g * npix + i];
+    s.x = __fadd_rn(s.x, v.x);
+    s.y = __fadd_rn(s.y, v.y);
+  }
+  cg[i] = s;
+  const float tn = batch_t(t, p, static_cast<int>(i / hw));
+  st_pair(grad_flow + i * 2, __fmul_rn(s.x, tn), __fmul_rn(s.y, tn));
 }
 
 // The tile origins alone, [n, ty_n, tx_n, 2] int32 (oy, ox): what K1 and K2
@@ -655,11 +697,10 @@ size_t round16(size_t b) { return (b + 15) / 16 * 16; }
 // image still spreads over the card) and a window that leaves room for two
 // CTAs per SM, else for one. K1 (staging) also holds its output staging
 // buffers. A window of all C channels that fits neither at 4 rows per CTA
-// takes channel groups where `groups` allows them (K1) and is refused
-// otherwise (cudaErrorInvalidValue). Returns the dynamic shared memory in
-// *smem.
-cudaError_t plan(Params& p, int nsh_y, int nsh_x, size_t img_bytes, bool staging, bool groups,
-                 int* dev, size_t* smem) {
+// takes channel groups (K1 and K2). Returns the dynamic shared memory in
+// *smem, or cudaErrorInvalidValue for a launch the kernels do not take.
+cudaError_t plan(Params& p, int nsh_y, int nsh_x, size_t img_bytes, bool staging, int* dev,
+                 size_t* smem) {
   if (p.n <= 0 || p.h <= 0 || p.w <= 0 || p.c <= 0 || nsh_y < 2 || nsh_x < 2)
     return cudaErrorInvalidValue;
   p.ty_n = (p.h + kTh - 1) / kTh;
@@ -695,7 +736,6 @@ cudaError_t plan(Params& p, int nsh_y, int nsh_x, size_t img_bytes, bool staging
       }
     }
   }
-  if (!groups) return cudaErrorInvalidValue;  // the window does not fit in shared memory
   // Channel groups: a window copies at most min(ww, w) columns of cg
   // channels, packed, with no staging. cg is a multiple of `unit` channels,
   // so that every group starts on a 16-byte boundary where C channels are
@@ -776,12 +816,30 @@ struct Interp {
 
 template <typename TI, typename TF>
 struct Grad {
+  // part: the groups' scratch [groups, n, h, w, 2] f32 of a grouped launch
   template <bool kBf16, bool kConstant>
   static cudaError_t run(dim3 grid, size_t smem, int dev, cudaStream_t stream, const Params& p,
                          const void* img, const void* flow, const float* t, const void* ct,
-                         void* grad_flow, float* cg) {
+                         void* grad_flow, float* cg, float* part) {
+    if (!p.grouped)
+      return go<kBf16, kConstant, false>(grid, smem, dev, stream, p, img, flow, t, ct, grad_flow,
+                                         cg);
+    cudaError_t err =
+        go<kBf16, kConstant, true>(grid, smem, dev, stream, p, img, flow, t, ct, grad_flow, part);
+    if (err != cudaSuccess) return err;
+    const size_t npix = static_cast<size_t>(p.n) * p.h * p.w;
+    grad_groups_sum_kernel<TF><<<static_cast<unsigned>((npix + kThreads - 1) / kThreads),
+                                 kThreads, 0, stream>>>(
+        reinterpret_cast<const float2*>(part), t, static_cast<TF*>(grad_flow),
+        reinterpret_cast<float2*>(cg), p);
+    return cudaGetLastError();
+  }
+  template <bool kBf16, bool kConstant, bool kGrouped>
+  static cudaError_t go(dim3 grid, size_t smem, int dev, cudaStream_t stream, const Params& p,
+                        const void* img, const void* flow, const float* t, const void* ct,
+                        void* grad_flow, float* cg) {
     static bool done[kMaxDevices] = {};
-    auto kernel = warp_windowed_grad_kernel<TI, TF, kBf16, kConstant>;
+    auto kernel = warp_windowed_grad_kernel<TI, TF, kBf16, kConstant, kGrouped>;
     const cudaError_t err = set_smem(kernel, dev, done);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, stream>>>(
@@ -843,7 +901,7 @@ extern "C" int warp_windowed_launch(
                          ry_max, rx_max);
   size_t smem = 0;
   int dev = 0;
-  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, true, true, &dev, &smem);
+  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, true, &dev, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte group copies need a 16-byte aligned image (a view may not be)
   if (reinterpret_cast<uintptr_t>(img) % 16) p.vec16 = 0;
@@ -856,27 +914,32 @@ extern "C" int warp_windowed_launch(
 // K2. The arguments of warp_windowed_launch, plus ct: [n, h, w, c] in img's
 // type (the cotangent of out); grad_flow: [n, h, w, 2] in flow's type; cg:
 // [n, h, w, 2] f32, (d loss/d sx, d loss/d sy); both written as pairs, so
-// aligned to a pair. Returns the cudaError_t.
+// aligned to a pair; part: f32 scratch of [groups, n, h, w, 2] for a launch
+// whose plan takes channel groups (warp_windowed_plan), else unused (may be
+// null). Returns the cudaError_t.
 extern "C" int warp_windowed_grad_launch(
     const void* img, const void* flow, const void* t, float t_scalar, int t_stride,
-    const void* ct, void* grad_flow, void* cg, int n, int h, int w, int c, int img_bf16,
-    int flow_bf16, int bf16_window, int constant, int ry, int rx, int pt, int pl, int nsh_y,
-    int nsh_x, float ylo, float yhi, float xlo, float xhi, float ry_max, float rx_max,
+    const void* ct, void* grad_flow, void* cg, void* part, int n, int h, int w, int c,
+    int img_bf16, int flow_bf16, int bf16_window, int constant, int ry, int rx, int pt, int pl,
+    int nsh_y, int nsh_x, float ylo, float yhi, float xlo, float xhi, float ry_max, float rx_max,
     void* stream) {
-  if (reinterpret_cast<uintptr_t>(cg) % 8 ||
+  if (reinterpret_cast<uintptr_t>(cg) % 8 || reinterpret_cast<uintptr_t>(part) % 8 ||
       reinterpret_cast<uintptr_t>(grad_flow) % (flow_bf16 ? 4 : 8))
     return static_cast<int>(cudaErrorMisalignedAddress);
   Params p = make_params(n, h, w, c, t_scalar, t_stride, ry, rx, pt, pl, ylo, yhi, xlo, xhi,
                          ry_max, rx_max);
   size_t smem = 0;
   int dev = 0;
-  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, false, false, &dev, &smem);
+  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, false, &dev, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.tx_n, p.ty_n * p.split, p.n);
+  if (p.grouped && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte group copies need a 16-byte aligned image (a view may not be)
+  if (reinterpret_cast<uintptr_t>(img) % 16) p.vec16 = 0;
+  const dim3 grid(p.tx_n * p.groups, p.ty_n * p.split, p.n);
   return static_cast<int>(launch_typed<Grad>(
       img_bf16, flow_bf16, grid, smem, dev, bf16_window, constant,
       static_cast<cudaStream_t>(stream), p, img, flow, static_cast<const float*>(t), ct,
-      grad_flow, static_cast<float*>(cg)));
+      grad_flow, static_cast<float*>(cg), static_cast<float*>(part)));
 }
 
 // The tile origins K1 and K2 compute, alone: origin [n, ceil(h/32),
@@ -923,8 +986,7 @@ extern "C" int warp_windowed_plan(int n, int h, int w, int c, int img_bf16, int 
   Params p = make_params(n, h, w, c, 0.f, 0, 0, 0, 0, 0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
   size_t smem = 0;
   int dev = 0;
-  const cudaError_t err =
-      plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, !grad, !grad, &dev, &smem);
+  const cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, !grad, &dev, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long v[7] = {p.split, p.rows, p.grouped, p.groups, p.cg, static_cast<long long>(smem),
                           static_cast<long long>(p.tx_n) * p.groups * p.ty_n * p.split * p.n};

@@ -17,19 +17,29 @@ Warps: all eight of a forward go through ``core/warp.py::backward_warp``
 with the replicate border, radius 8 and f32 windows, the TPU's semantics:
 on the GPU the windowed CUDA kernel (K1; the 176-channel feature warps take
 its channel groups), on the CPU the exact warp, as the reference does off
-the TPU. The feature flows are clamped to +-``feat_warp_clamp`` first.
-Inference runs under ``torch.no_grad()``; the reference's training path
-(the feature warps' image cotangent, ``img_grad='shifted:R'``) is not
-ported.
+the TPU. The feature flows are clamped to +-``feat_warp_clamp`` first, with
+``jnp.clip``'s gradient (half at a flow on the bound, as
+``torch.maximum``/``minimum`` give it; ``torch.clamp`` gives all of it).
+Inference runs under ``torch.no_grad()``. Training (``SAFAModel.trainable``,
+``python -m vfisr_tpu_torch.train --model safa``) differentiates the feature
+warps as the reference does: the flow gradient from K2 (in channel groups
+at 176 channels), the features' gradient from the dense shifted adjoint
+(``img_grad='shifted:R'``, R = ceil(feat_warp_clamp)).
 
-Convolutions run f32 (``load`` turns TF32 off). The 176-channel ones at
-1/4 resolution (``Conv_2``, the flow stages' ``_a``/``_b``, the decoder)
-and ``dec_c`` run without cuDNN: at a 1080p tile its heuristic plans took
-24-442 ms and 17-34 GB of workspace per conv where PyTorch's own
-convolution takes 1-2 ms, and 26.7 against 15.1 ms for ``dec_c``
-(``models/base.py::without_cudnn``; chip_smoke.py's conv lines). The
-encoder's strided convs and the 5- and 12-channel heads keep cuDNN, which
-was as fast or faster there.
+Convolutions run f32 (``load`` turns TF32 off). Which run without cuDNN
+(``models/base.py::without_cudnn``) was measured per conv shape, forward
+and backward, on an H100 80GB HBM3 at 700 W (chip_smoke.py's conv lines;
+PERF.md §5), and
+depends on the shapes, so on the mode (``SAFANet.NO_CUDNN``). In inference
+(a 1080p tile: batch 3, 114x144 at 1/4) the 176-channel convs at 1/4
+resolution (``Conv_2``, the flow stages' ``_a``/``_b``, the decoder) and
+``dec_c`` run without it: its heuristic plans took 24-442 ms and 17-34 GB
+of workspace per conv there, where PyTorch's own convolution takes 1-2 ms.
+In training (the trainer's batch 16, crop 192: 48x48 at 1/4) cuDNN's plans
+win at the 176->176 convs, so only the forwards of ``flow*_a``, ``dec_a``
+(by 5%) and ``dec_c`` (by 44%) leave cuDNN. Every backward runs with cuDNN,
+which won at every training shape. The encoder's strided convs and the 5-
+and 12-channel heads keep cuDNN.
 
 Flax conventions kept: ``nn.Conv(padding=1)`` pads symmetrically, also at
 stride 2; every ``jax.image.resize(..., "bilinear")`` here is an upsampling
@@ -41,7 +51,10 @@ weights/safa.npz as it is.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
+
+import math
 
 import numpy as np
 import torch
@@ -65,6 +78,12 @@ class SAFANet(nn.Module):
     """(img0, img1 NHWC [N,H,W,3] in [0, 1], timestep [N]) -> the frame at
     that timestep at 2x resolution, NHWC [N, 2H, 2W, 3]."""
 
+    # the convs whose forward runs without cuDNN, in inference (False) and
+    # in training (True; module docstring), by kind: Conv_2, flow*_a,
+    # flow*_b, dec_a, dec_b*, dec_c
+    NO_CUDNN = {False: ("Conv_2", "flow_a", "flow_b", "dec_a", "dec_b", "dec_c"),
+                True: ("flow_a", "dec_a", "dec_c")}
+
     def __init__(self, c: int = 176, num_dec_blocks: int = 8, feat_warp_clamp: float = 8.0):
         super().__init__()
         self.c, self.num_dec_blocks = c, num_dec_blocks
@@ -87,15 +106,24 @@ class SAFANet(nn.Module):
         """NCHW frame -> NHWC features at 1/4 (contiguous: the warps read
         them as they are)."""
         f = _lrelu(self.Conv_1(_lrelu(self.Conv_0(x))))
-        with without_cudnn():
+        with self._cudnn_off("Conv_2"):
             f = self.Conv_2(f)
         return _nhwc(f).contiguous()
 
+    def _cudnn_off(self, kind: str):
+        """``without_cudnn()`` around a conv of this kind where ``NO_CUDNN``
+        says so for the module's mode."""
+        if kind in self.NO_CUDNN[self.training]:
+            return without_cudnn()
+        return contextlib.nullcontext()
+
     def _feat_warp(self, f: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-        """NHWC features by an NCHW 2-channel flow clamped to the feature
-        clamp -> NCHW view."""
-        fl = _nhwc(torch.clamp(flow, -self.feat_warp_clamp, self.feat_warp_clamp)).contiguous()
-        return _nchw(backward_warp(f, fl, 1.0, border="replicate"))
+        """NHWC features by an NCHW 2-channel flow clipped to the feature
+        clamp (as ``jnp.clip``, gradient included) -> NCHW view."""
+        bound = flow.new_tensor(self.feat_warp_clamp)
+        fl = _nhwc(torch.minimum(torch.maximum(flow, -bound), bound)).contiguous()
+        return _nchw(backward_warp(f, fl, 1.0, border="replicate",
+                                   img_grad=f"shifted:{math.ceil(self.feat_warp_clamp)}"))
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor,
                 timestep: torch.Tensor) -> torch.Tensor:
@@ -109,8 +137,9 @@ class SAFANet(nn.Module):
         for i in range(2):
             inp = torch.cat([self._feat_warp(f0, flow[:, 0:2]), self._feat_warp(f1, flow[:, 2:4]),
                              t_map4, mask, flow], dim=1)
-            with without_cudnn():
+            with self._cudnn_off("flow_a"):
                 hdd = _lrelu(getattr(self, f"flow{i}_a")(inp))
+            with self._cudnn_off("flow_b"):
                 hdd = _lrelu(getattr(self, f"flow{i}_b")(hdd)) + hdd
             out = getattr(self, f"flow{i}_head")(hdd)
             flow = flow + out[:, :4]
@@ -126,12 +155,13 @@ class SAFANet(nn.Module):
 
         agg = torch.cat([self._feat_warp(f0, flow[:, 0:2]), self._feat_warp(f1, flow[:, 2:4]),
                          t_map4], dim=1)
-        with without_cudnn():
+        with self._cudnn_off("dec_a"):
             d = _lrelu(self.dec_a(agg))
+        with self._cudnn_off("dec_b"):
             for i in range(self.num_dec_blocks):
                 d = _lrelu(getattr(self, f"dec_b{i}")(d)) + d
-            d = torch.cat([_upsample(d, (h, w)), _nchw(fused), _nchw(warped0), _nchw(warped1)],
-                          dim=1)
+        d = torch.cat([_upsample(d, (h, w)), _nchw(fused), _nchw(warped0), _nchw(warped1)], dim=1)
+        with self._cudnn_off("dec_c"):
             d = _lrelu(self.dec_c(d))
         out = depth_to_space(self.ps_head(d), 2)
         base = _nhwc(_upsample(_nchw(fused), (2 * h, 2 * w)))
@@ -193,6 +223,13 @@ class SAFAModel(JointModel):
             load_into(module, weights_path)
         self.module = module.to(self.device).eval().requires_grad_(False)
         self._loaded = True
+
+    def trainable(self) -> SAFANet:
+        """The loaded module in training mode, every parameter requiring a
+        gradient (``load`` leaves it frozen for inference)."""
+        if self.module is None:
+            raise RuntimeError("load() the model before training it")
+        return self.module.train().requires_grad_(True)
 
     def net(self, x0: torch.Tensor, x1: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
         """One net call: [M,H,W,3] pairs and ts [M] -> [M, 2H, 2W, 3]."""

@@ -12,8 +12,9 @@ channels read as (r, r, 3), row offset, column offset, colour
 (3, r, r), so ``depth_to_space`` here reshapes and permutes explicitly.
 
 On the GPU every conv runs f32 (``load`` turns TF32 off) with cuDNN's
-plan, but ``conv_cat``, which runs without cuDNN: its plan was measured to
-lose (``models/base.py::without_cudnn``).
+plan, but ``conv_cat`` in inference, which runs without cuDNN there: its
+plan was measured to lose at 1080p (``models/base.py::without_cudnn``) and
+to win at the trainer's shapes (batch 16, crop 192; PERF.md §5).
 
 ``SPANModel`` follows the reference's contract: the fixed x2 or x4 net,
 then Lanczos4 to the exact target size, clipped to [0, 1]; interpolation
@@ -24,6 +25,8 @@ is the baselines' crossfade. ``create_rife_span`` and
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import contextlib
 
 import numpy as np
 import torch
@@ -82,7 +85,8 @@ class SPANNet(nn.Module):
         h, _ = self.block_4(h)
         h, b5 = self.block_5(h)
         final = self.conv_2(self.block_6(h)[0])
-        with without_cudnn():  # cuDNN's plan for the 1x1 conv_cat loses (base.without_cudnn)
+        # cuDNN's plan for the 1x1 conv_cat loses in inference, wins in training
+        with contextlib.nullcontext() if self.training else without_cudnn():
             agg = self.conv_cat(torch.cat([feat, final, b1, b5], dim=1))
         return depth_to_space(self.upsampler(agg), self.upscale)
 
@@ -127,6 +131,13 @@ class SPANModel(BaseModel):
             load_into(module, weights_path)
         self.module = module.to(self.device).eval().requires_grad_(False)
         self._loaded = True
+
+    def trainable(self) -> SPANNet:
+        """The loaded module in training mode, every parameter requiring a
+        gradient (``load`` leaves it frozen for inference)."""
+        if self.module is None:
+            raise RuntimeError("load() the model before training it")
+        return self.module.train().requires_grad_(True)
 
     def interpolate_batch(self, x0: torch.Tensor, x1: torch.Tensor,
                           timestamps: Tuple[float, ...]) -> torch.Tensor:

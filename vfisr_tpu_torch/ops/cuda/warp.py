@@ -28,13 +28,15 @@ op besides allocating their outputs (and K2's ``ct.contiguous()``).
 that hold them against ``window_origins``. What bounds the kernels on the
 H100 is bytes: see the note in the CUDA source.
 
-Channels: K1 takes any C, as the Pallas wrapper does by chunking. A window
-of all C channels that does not fit in shared memory (past 9 channels for
-an f32 image at r = 8, such as SAFA's 176-channel feature warps) is split
-into channel groups, one more grid axis, with the same bits as the whole-C
-launch. K2 keeps the whole-C window and ``warp_windowed_grad`` refuses a
-wider one with a ValueError before it launches. ``plan`` says how the
-kernel takes a launch.
+Channels: K1 and K2 take any C, as the Pallas wrapper does by chunking. A
+window of all C channels that does not fit in shared memory (past 9
+channels for an f32 image at r = 8 in K1, 10 in K2, such as SAFA's
+176-channel feature warps) is split into channel groups, one more grid
+axis. K1's grouped launch has the same bits as the whole-C one. K2's sums
+over channels: each group's CTAs write the group's partial sums to an f32
+scratch that ``launch_grad`` allocates, and a second kernel adds the groups
+in order (deterministic, no atomics). ``plan`` says how the kernels take a
+launch.
 
 ``warp_windowed_plain`` (with its ``weight_mode``) and
 ``warp_windowed_grad_plain`` are the same functions in plain PyTorch. The
@@ -99,7 +101,7 @@ def build() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     t_args = [p, f, i]  # t pointer (or None), t_scalar, t_stride
     lib.warp_windowed_launch.argtypes = [p, p, *t_args, p] + [i] * 14 + [f] * 6 + [p]
-    lib.warp_windowed_grad_launch.argtypes = [p, p, *t_args, p, p, p] + [i] * 14 + [f] * 6 + [p]
+    lib.warp_windowed_grad_launch.argtypes = [p, p, *t_args, p, p, p, p] + [i] * 14 + [f] * 6 + [p]
     lib.warp_windowed_origins_launch.argtypes = [p, *t_args, p] + [i] * 9 + [p]
     lib.warp_windowed_plan.argtypes = [i] * 8 + [p]
     for fn in (lib.warp_windowed_launch, lib.warp_windowed_grad_launch,
@@ -251,9 +253,8 @@ def plan(img: torch.Tensor, r, compute_dtype: torch.dtype, grad: bool = False):
     PLAN_FIELDS (row slices per tile, rows per CTA, whether the channels
     are split into groups, how many groups of how many channels, shared
     memory bytes per CTA, CTAs), or None where the kernel refuses the
-    launch. K1 (grad=False) splits a window of all C channels that does
-    not fit in shared memory into channel groups; K2 (grad=True) does not
-    and refuses it."""
+    launch. K1 (grad=False) and K2 (grad=True) split a window of all C
+    channels that does not fit in shared memory into channel groups."""
     ry, rx = _radii(r)
     bf16 = compute_dtype == torch.bfloat16
     _, _, nsh_y, nsh_x, _ = _geometry(img.shape[1], img.shape[2], ry, rx, bf16, "replicate")
@@ -309,8 +310,9 @@ def warp_windowed_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tenso
     [N,H,W,2] f32 is (d loss/d sx, d loss/d sy), the channel sums of ct
     times the Pallas kernel's 'grad_x' and 'grad_y' outputs; grad_flow =
     cg * t in flow's dtype. The window origins are those of the forward
-    and constant. CPU tensors go to ``warp_windowed_grad_plain``; CUDA
-    tensors to the kernel.
+    and constant. Any C (in channel groups where the window needs them,
+    ``plan(grad=True)``). CPU tensors go to ``warp_windowed_grad_plain``;
+    CUDA tensors to the kernel.
     """
     _check(img, flow, border, compute_dtype)
     if ct.shape != img.shape or ct.dtype != img.dtype or ct.device != img.device:
@@ -319,12 +321,6 @@ def warp_windowed_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tenso
     if img.device.type == "cpu":
         return warp_windowed_grad_plain(img, flow, t, ct, r, border, compute_dtype)
     _check_cuda("warp_windowed_grad", img, flow)
-    if plan(img, r, compute_dtype, grad=True) is None:
-        raise ValueError(
-            f"warp_windowed_grad: a window of {img.shape[-1]} channels does not fit in shared "
-            f"memory (img {tuple(img.shape)} {img.dtype}, r={r}, window {compute_dtype}); K2 "
-            "sums its channels in order inside a thread and is not split into channel groups "
-            "yet (SAFA training: ROADMAP queue 1, item 7)")
     grad_flow = torch.empty_like(flow)
     cg = torch.empty(flow.shape, dtype=torch.float32, device=flow.device)
     # autograd hands back cotangents of permuted outputs (rife.py's NCHW
@@ -339,15 +335,21 @@ def launch_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor,
     """Launch K2 on checked CUDA tensors (``warp_windowed_grad`` prepares
     them): t as for ``launch``, ct contiguous like img, grad_flow like flow
     and cg [N,H,W,2] f32, both fresh allocations (written as aligned
-    pairs). The kernel recomputes the forward's window origins."""
+    pairs). The kernel recomputes the forward's window origins. A launch in
+    channel groups also takes an f32 scratch [groups, N, H, W, 2] for the
+    groups' partial sums, allocated here."""
     global grad_launches
     lib = build()
     t_args, _keep = _t_args(t, img.shape[0], img.device)
+    pl = plan(img, r, compute_dtype, grad=True)
+    part = (torch.empty((pl["groups"], *flow.shape), dtype=torch.float32, device=flow.device)
+            if pl is not None and pl["grouped"] else None)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.warp_windowed_grad_launch(
             img.data_ptr(), flow.data_ptr(), *t_args, ct.data_ptr(), grad_flow.data_ptr(),
-            cg.data_ptr(), *_launch_args(img, flow, r, border, compute_dtype), stream)
+            cg.data_ptr(), None if part is None else part.data_ptr(),
+            *_launch_args(img, flow, r, border, compute_dtype), stream)
     if err != 0:
         raise RuntimeError(f"warp_windowed_grad kernel launch failed: cudaError {err}")
     grad_launches += 1

@@ -1,16 +1,19 @@
-"""Device time of the windowed warp's forward kernel (K1) at the launch
-shapes of the port's paths, for comparing two checkouts on one card.
+"""Device time of the windowed warp's kernels, the forward (K1) and its
+flow gradient (K2), at the launch shapes of the port's paths, for comparing
+two checkouts on one card.
 
     python vfisr_tpu_torch/time_k1.py --tree DIR [--label NAME]
 
 imports ``vfisr_tpu_torch.ops.cuda.warp`` from the checkout DIR (its own
-nvcc build), and for each shape of ``SHAPES`` (the flagship's, the
-training's, the adaptive model's and SAFA's launches) times GRAPH launches
-captured in a CUDA graph and replayed REPLAYS times after a warm-up: ms
-per launch, device time, the window origin included. Prints one JSON line
-per shape; a shape the checkout's kernel refuses prints its error. Needs a
-CUDA card and nvcc. Run two checkouts in turns in one process each (A, B,
-B, A) to compare them.
+nvcc build), and for each shape of ``SHAPES`` (K1: the flagship's, the
+training's, the adaptive model's and SAFA's launches) and ``GRAD_SHAPES``
+(K2: the RIFE train step's four launches, and SAFA training's feature
+warp) times GRAPH launches captured in a CUDA graph and replayed REPLAYS
+times after a warm-up: ms per launch, device time, the window origin
+included. Prints one JSON line per shape ("kernel": "K1" or "K2"); a
+shape the checkout's kernel refuses prints its error. Needs a CUDA card
+and nvcc. Run two checkouts in turns in one process each (A, B, B, A) to
+compare them.
 """
 
 from __future__ import annotations
@@ -35,6 +38,15 @@ SHAPES = (
     ("safa frame", (3, 456, 576, 3), "f32", "f32", 8),
     ("safa feature", (3, 114, 144, 176), "f32", "f32", 8),
 )
+# K2: the RIFE train step's launches (levels 1-3 at 1/4, 1/2, 1/2 of the
+# 192 crop, both images in one call, and the final warp), and SAFA
+# training's feature warp (channel groups)
+GRAD_SHAPES = (
+    ("rife train level s4", (32, 48, 48, 3), "f32", "bf16", (2, 4)),
+    ("rife train level s2", (32, 96, 96, 3), "f32", "bf16", (2, 4)),
+    ("rife train final", (32, 192, 192, 3), "f32", "bf16", (4, 6)),
+    ("safa train feature", (16, 48, 48, 176), "f32", "f32", 8),
+)
 GRAPH, REPLAYS = 20, 10
 
 
@@ -54,7 +66,8 @@ def main() -> int:
     kw.build()
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     gen = torch.Generator(device="cpu").manual_seed(0)
-    for name, shape, img_dt, win_dt, r in SHAPES:
+    for kernel, (name, shape, img_dt, win_dt, r) in ([("K1", v) for v in SHAPES]
+                                                     + [("K2", v) for v in GRAD_SHAPES]):
         n, h, w, c = shape
         img = torch.rand(shape, generator=gen).to("cuda", dtypes[img_dt])
         yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
@@ -63,10 +76,18 @@ def main() -> int:
                             2.0 * torch.cos(yy / 9.0) - 0.5], -1)
         flow = (flow + 0.5 * torch.randn((n, h, w, 2), generator=gen)).to("cuda", dtypes[img_dt])
         out = torch.empty_like(img)
-        row = dict(tree=args.label or args.tree, name=name, shape=list(shape), img=img_dt,
-                   window=win_dt, r=r)
+        ct = torch.randn(shape, generator=gen).to("cuda", dtypes[img_dt])
+        gflow, cg = torch.empty_like(flow), torch.empty(flow.shape, device="cuda")
+        row = dict(tree=args.label or args.tree, kernel=kernel, name=name, shape=list(shape),
+                   img=img_dt, window=win_dt, r=r)
+        def launch(kernel=kernel, img=img, flow=flow, out=out, ct=ct, gflow=gflow, cg=cg, r=r,
+                   cd=dtypes[win_dt]):
+            if kernel == "K1":
+                kw.launch(img, flow, 1.0, out, r, "replicate", cd)
+            else:
+                kw.launch_grad(img, flow, 1.0, ct, gflow, cg, r, "replicate", cd)
+
         try:
-            launch = lambda: kw.launch(img, flow, 1.0, out, r, "replicate", dtypes[win_dt])  # noqa: E731
             launch()
             torch.cuda.synchronize()
             graph = torch.cuda.CUDAGraph()

@@ -1,5 +1,6 @@
 """Synthetic training scenes made on the device (port of
-``vfisr_tpu/train/device_data.py::device_synthetic_batch``).
+``vfisr_tpu/train/device_data.py``: ``device_synthetic_batch`` for VFI and
+``device_sr_batch`` for SR).
 
 A scene is a textured background moving by a subpixel camera translation,
 a soft-edged foreground disc with its own motion, optional high-frequency
@@ -13,6 +14,12 @@ The work is split in two so that the tests can feed the port the JAX
 function's own random draws: ``draw_scene`` draws every random array from a
 ``torch.Generator`` (the coarse texture grids before their upsampling, the
 per-sample scalars, the speckle field); ``render_scene`` is deterministic.
+
+The SR scenes (``device_sr_batch``) are crisp and unwarped: a textured
+canvas with six hard-edged flat-colour panels, near-Nyquist checkers gated
+to patches, 1 px panel seams and speckle, at full contrast, which the
+caller area-downsamples for the LR input. The same split:
+``draw_sr_scene`` and ``render_sr_scene``.
 """
 
 from __future__ import annotations
@@ -155,3 +162,62 @@ def device_synthetic_batch(gen: torch.Generator, batch: int = 32, crop: int = 19
                            detail: float = 0.35) -> dict:
     """One batch of scenes on ``gen``'s device: {img0, img1, gt, t}."""
     return render_scene(draw_scene(gen, batch, crop, detail), crop, detail)
+
+
+SR_BOXES = 6  # hard-edged panels per SR scene
+
+
+def draw_sr_scene(gen: torch.Generator, batch: int, size: int) -> dict:
+    """Every random array of one batch of SR scenes, on ``gen``'s device,
+    with the ranges of the JAX generator (device_data.py:165-193)."""
+    n, c = batch, size
+    dev = gen.device
+
+    def uniform(shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def randint(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).float()
+
+    g0, g1, gate = max(c // 16, 2), max(c // 4, 4), max(c // 24, 2)
+    return dict(wmix=uniform((n, 1, 1, 1), 0.25, 0.75),
+                tex=(uniform((n, g0, g0, 3)), uniform((n, g1, g1, 3))),
+                boxes=uniform((n, SR_BOXES, 4)), cols=uniform((n, SR_BOXES, 3), 0.1, 1.0),
+                per=randint((n, 1, 1), 2, 5), gate=uniform((n, gate, gate, 3)),
+                pitch=randint((n, 1, 1), 16, 64), speck=uniform((n, c, c)),
+                tone=uniform((n, 1, 1, 3), 0.1, 1.0))
+
+
+def render_sr_scene(d: dict, size: int, detail: float = 0.6) -> dict:
+    """{"gt": [N,size,size,3]} in [0, 1] from ``draw_sr_scene``'s draws (the
+    JAX function's, device_data.py:165-198)."""
+    c = size
+    dev = d["wmix"].device
+    wmix = d["wmix"]
+    canvas = wmix * resize_cubic(d["tex"][0], c) + (1 - wmix) * resize_cubic(d["tex"][1], c)
+    cy = torch.arange(c, device=dev, dtype=torch.float32)[None, :, None]
+    cx = torch.arange(c, device=dev, dtype=torch.float32)[None, None, :]
+    boxes, cols = d["boxes"], d["cols"]
+    for k in range(SR_BOXES):  # y0, x0, h, w as fractions of the size
+        y0 = boxes[:, k, 0, None, None] * c * 0.8
+        x0 = boxes[:, k, 1, None, None] * c * 0.8
+        bh = 8.0 + boxes[:, k, 2, None, None] * c * 0.25
+        bw = 8.0 + boxes[:, k, 3, None, None] * c * 0.25
+        inb = ((cy >= y0) & (cy < y0 + bh) & (cx >= x0) & (cx < x0 + bw)).float()[..., None]
+        canvas = canvas * (1 - 0.9 * inb) + cols[:, k, None, None] * 0.9 * inb
+    per, pitch = d["per"], d["pitch"]
+    checker = torch.remainder(torch.floor(cy / per) + torch.floor(cx / per), 2.0)
+    gate = (resize_cubic(d["gate"], c)[..., 0] > 0.7).float()
+    lines = ((torch.remainder(cy, pitch) < 1.0) | (torch.remainder(cx, pitch) < 1.0)).float()
+    speck = (d["speck"] > 0.99).float()
+    struct = torch.clamp(checker * gate + 0.7 * lines + 1.5 * speck, 0.0, 1.0)[..., None]
+    canvas = canvas * (1.0 - detail * struct) + d["tone"] * (detail * struct)
+    return {"gt": torch.clamp(canvas, 0.0, 1.0)}
+
+
+@torch.no_grad()
+def device_sr_batch(gen: torch.Generator, batch: int = 32, size: int = 192,
+                    detail: float = 0.6) -> dict:
+    """One batch of crisp HR scenes for SR training on ``gen``'s device:
+    {"gt": [N,size,size,3]}."""
+    return render_sr_scene(draw_sr_scene(gen, batch, size), size, detail)

@@ -1,4 +1,4 @@
-"""Training steps for the VFI models (port of ``vfisr_tpu/train/train.py``).
+"""Training steps for the VFI and SR models (port of ``vfisr_tpu/train/train.py``).
 
 Losses (charbonnier, soft census, ``vfi_loss``, ``sr_loss``) take NHWC
 tensors in [0, 1], as the JAX ones do. ``create_train_state`` builds the
@@ -10,6 +10,8 @@ semantics: ``make_train_step`` clips by the global norm with optax's formula
 decayed, biases included) at the schedule's value for the update count
 before the increment. ``use_remat`` recomputes the forward in the backward
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
+``make_sr_train_step`` is the SR step (batch {lr, hr}, no remat, as the JAX
+one).
 
 Data-parallel training (the JAX step's mesh) is not ported; one card.
 """
@@ -128,26 +130,45 @@ def apply_gradients(state: TrainState, params: list) -> None:
     state.step += 1
 
 
+def _make_step(module: torch.nn.Module, state: TrainState,
+               loss_of: Callable[[dict], torch.Tensor]) -> Callable[[dict], torch.Tensor]:
+    """``step(batch) -> loss`` (a device scalar, detached): the gradients of
+    ``loss_of(batch)``, then ``apply_gradients``."""
+    params = [p for p in module.parameters() if p.requires_grad]
+
+    def step(batch: dict) -> torch.Tensor:
+        for p in params:
+            p.grad = None
+        loss = loss_of(batch)
+        loss.backward()
+        apply_gradients(state, params)
+        return loss.detach()
+
+    return step
+
+
 def make_train_step(module: torch.nn.Module, state: TrainState,
                     loss_fn: Callable = vfi_loss,
                     use_remat: bool = True) -> Callable[[dict], torch.Tensor]:
     """One VFI training step: ``step(batch) -> loss`` (a device scalar,
     detached). batch: {img0, img1, gt [N,H,W,3], t [N]}; the module maps
     (img0, img1, t) to its prediction or a tuple that starts with it."""
-    params = [p for p in module.parameters() if p.requires_grad]
 
     def forward(img0, img1, t, gt):
         out = module(img0, img1, t)
         pred = out[0] if isinstance(out, tuple) else out
         return loss_fn(pred, gt)
 
-    def step(batch: dict) -> torch.Tensor:
+    def loss_of(batch: dict) -> torch.Tensor:
         args = (batch["img0"], batch["img1"], batch["t"], batch["gt"])
-        for p in params:
-            p.grad = None
-        loss = checkpoint(forward, *args, use_reentrant=False) if use_remat else forward(*args)
-        loss.backward()
-        apply_gradients(state, params)
-        return loss.detach()
+        return checkpoint(forward, *args, use_reentrant=False) if use_remat else forward(*args)
 
-    return step
+    return _make_step(module, state, loss_of)
+
+
+def make_sr_train_step(module: torch.nn.Module, state: TrainState,
+                       loss_fn: Callable = sr_loss) -> Callable[[dict], torch.Tensor]:
+    """One SR training step: ``step(batch) -> loss`` (a device scalar,
+    detached). batch: {lr [N,h,w,3], hr [N,h*s,w*s,3]}; the module maps lr
+    to its hr prediction. No remat, as the JAX SR step has none."""
+    return _make_step(module, state, lambda batch: loss_fn(module(batch["lr"]), batch["hr"]))
