@@ -118,7 +118,11 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    (deterministic cuDNN; loss 1e-5 relative, gradients 1e-4 of each
    tensor's largest). Then SAFA_TRAIN_STEPS timed steps, counted (ms/step,
    samples/s, peak memory), the shifted adjoint per call at the step's own
-   inputs and its share of a step, every conv shape of a step forward and
+   inputs and its share of a step, the adjoint and the step again with
+   every offset of the radius instead of the offsets that the
+   displacements' range (read back to the host) lets reach (the same
+   values; timed steps with the read-back, every offset, the read-back
+   again), every conv shape of a step forward and
    backward with cuDNN's plan and without (the path's forward choice
    printed), and per launch shape the kernels alone (CUDA-graph replay),
    their wrappers, bounds, plain twins and grid_sample (its grid gradient
@@ -152,7 +156,6 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-DEVICE = "cuda"  # the training phases' device (a CPU rehearsal of their control flow sets "cpu")
 PAIRS = 6  # timed pairs of the main path
 TS = (0.25, 0.5, 0.75)
 SCALE = 1440 / 1080  # the streaming pipeline's target_h / height
@@ -1142,7 +1145,7 @@ def time_convs(label: str, calls: list, backward: bool = False) -> dict:
     with cuDNN on and off. Prints the path's own forward choice. Returns
     {name: (cudnn ms, own ms)} (forward) for the first call of each shape."""
     seen, out = {}, {}
-    dev = torch.device(DEVICE)
+    dev = torch.device("cuda")
     for name, conv, shape, path_cudnn in calls:
         key = (conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, shape)
         if key in seen:
@@ -1185,7 +1188,8 @@ def time_convs(label: str, calls: list, backward: bool = False) -> dict:
               f"{res[0][0]:.3f} ms (peak {res[0][2]:.1f} MB over resident), cuDNN off "
               f"{res[1][0]:.3f} ms (peak {res[1][2]:.1f} MB); f32 bound "
               f"{gflop / F32_FLOP_PER_S * 1e12:.3f} ms{bwd}; the path's forward: "
-              f"{'cuDNN' if path_cudnn else 'cuDNN off'}")
+              f"{'cuDNN' if path_cudnn else 'cuDNN off'} (the "
+              f"{'faster' if (res[0][0] <= res[1][0]) == path_cudnn else 'slower'} here)")
     for key, names in seen.items():
         if len(names) > 1:
             print(f"{label} conv shape of {names[0]} also: {', '.join(names[1:])}")
@@ -1507,7 +1511,7 @@ def train_safa_phase(kw) -> tuple:
     t0 = time.perf_counter()
     npz = ROOT / "weights" / "safa.npz"
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-    model = SAFAModel(device=DEVICE)
+    model = SAFAModel(device="cuda")
     model.load(weights_path=str(npz))  # explicit path: strict
     require(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32),
             "TF32 off after SAFAModel.load")
@@ -1517,7 +1521,7 @@ def train_safa_phase(kw) -> tuple:
     state = create_train_state(module.parameters(), learning_rate=TRAIN_LR,
                                total_steps=SAFA_TRAIN_STEPS + 1)
     step = make_train_step(module, state)  # remat on, as scripts/train.py
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
     batch = batch_maker("safa", gen, TRAIN_BATCH, TRAIN_CROP, TRAIN_DETAIL)
     b = batch()
     require(tuple(b["img0"].shape) == (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3)
@@ -1613,6 +1617,31 @@ def train_safa_phase(kw) -> tuple:
     print(f"safa train shifted adjoint per step: {len(adj_ms)} calls, {sum(adj_ms):.3f} ms "
           f"({100.0 * sum(adj_ms) / ms:.1f}% of the {ms:.3f} ms step)")
 
+    # the adjoint's offsets bounded by the displacements' range, read back
+    # to the host once per call (the path), against every offset of
+    # max_disp with no read-back: the same values, per call, and the step
+    # end to end (read-back, every offset, read-back)
+    read_back = [real_adj(**a) for a in rec_adj]
+    real_reach = core_warp._shift_reach
+    core_warp._shift_reach = lambda dy, dx, big_r: [range(big_r, -big_r - 1, -1)] * 2
+    try:
+        every_ms = []
+        for j, a in enumerate(rec_adj):
+            require(torch.equal(real_adj(**a), read_back[j]),
+                    f"safa train shifted adjoint {j}: every offset gives the read-back's values")
+            every_ms.append(time_ms(lambda: real_adj(**a), 3))
+        del read_back
+        every_step_ms = timed_steps(kw, step, batch, SAFA_TRAIN_STEPS)[0]
+    finally:
+        core_warp._shift_reach = real_reach
+    again_ms = timed_steps(kw, step, batch, SAFA_TRAIN_STEPS)[0]
+    print(f"safa train shifted adjoint, offsets from the read-back range against every offset "
+          f"(no read-back): per call {', '.join(f'{x:.3f}' for x in adj_ms)} against "
+          f"{', '.join(f'{x:.3f}' for x in every_ms)} ms; per step {sum(adj_ms):.3f} against "
+          f"{sum(every_ms):.3f} ms; ms/step read-back {ms:.3f}, every offset "
+          f"{sum(every_step_ms) / len(every_step_ms):.3f}, read-back again "
+          f"{sum(again_ms) / len(again_ms):.3f}")
+
     # where a step's time goes: each conv shape forward and backward, with
     # cuDNN and without (the path's forward choice printed)
     fixed = batch()
@@ -1641,13 +1670,13 @@ def train_span_phase(kw) -> None:
 
     for name, scale in SR_SCALE.items():
         t0 = time.perf_counter()
-        model = SPANModel(scale=scale, device=DEVICE)
+        model = SPANModel(scale=scale, device="cuda")
         model.load(weights_path=str(ROOT / "weights" / f"span_x{scale}.npz"))  # strict
         module = model.trainable()
         state = create_train_state(module.parameters(), learning_rate=TRAIN_LR,
                                    total_steps=SPAN_TRAIN_STEPS + 1)
         step = make_sr_train_step(module, state)
-        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
         batch = batch_maker(name, gen, TRAIN_BATCH, TRAIN_CROP, TRAIN_DETAIL)
         b = batch()
         lr_hw = TRAIN_CROP // scale

@@ -14,10 +14,12 @@
   two packages' sums steps by up to the learning rate either way (a few
   in ten thousand here). Warps: the exact gather on both sides, each
   package's CPU default (the windowed path's backward, K2's twin and the
-  shifted adjoint, is held in tests/test_torch_warp_shifted.py).
+  shifted adjoint, is held in tests/test_torch_warp_shifted.py, and a
+  whole narrow step on it in tests/test_torch_safa_train_windowed.py).
 - The feature warp's clip where a flow sits on +-feat_warp_clamp: the
-  port's ``SAFANet._feat_warp`` gradient against ``jnp.clip`` and the JAX
-  warp (half the gradient at the bound; ``torch.clamp`` would pass all).
+  port's ``SAFANet._feat_warp`` flow gradient against ``jnp.clip`` and the
+  JAX warp (half the gradient at the bound; ``torch.clamp`` would pass
+  all), on each package's CPU default warp.
 - Narrow SPAN x2 and x4 (16 features): three ``make_sr_train_step`` steps
   against the JAX SR step, as above.
 - ``render_sr_scene`` fed the JAX ``device_sr_batch``'s own draws: 1e-5.
@@ -40,7 +42,7 @@ from vfisr_tpu.models.sota import span as jspan
 from vfisr_tpu.train import train as jtrain
 from vfisr_tpu.train.device_data import device_sr_batch as jax_sr_batch
 from vfisr_tpu.utils.checkpoint import _flatten, load_params
-from vfisr_tpu_torch.models.base import without_cudnn
+from vfisr_tpu_torch.models.base import cudnn_wins, without_cudnn
 from vfisr_tpu_torch.models.sota import safa as tsafa
 from vfisr_tpu_torch.models.sota import span as tspan
 from vfisr_tpu_torch.train import __main__ as tcli
@@ -264,9 +266,10 @@ def test_cli_default_outputs_and_safa_data_refusal():
         tcli.main(["--model", "safa", "--data", "data/processed", "--device", "cpu"])
 
 
-def test_trainable_and_the_modes_cudnn_choice():
-    """trainable() unfreezes the loaded module; SAFA's forward convs leave
-    cuDNN per mode (NO_CUDNN), SPAN's conv_cat in inference only."""
+def test_trainable_and_the_shape_cudnn_choice():
+    """trainable() unfreezes the loaded module; SAFA's and SPAN's planned
+    convs keep cuDNN only at the input shapes where it was measured to win
+    (``models/base.py::CUDNN_WINS``), whatever the module's mode."""
     for model in (tsafa.SAFAModel(device="cpu"), tspan.SPANModel(scale=4, device="cpu")):
         with pytest.raises(RuntimeError, match="load"):
             model.trainable()
@@ -274,22 +277,30 @@ def test_trainable_and_the_modes_cudnn_choice():
         assert not any(p.requires_grad for p in model.module.parameters())
         module = model.trainable()
         assert module.training and all(p.requires_grad for p in module.parameters())
+    full, span = tsafa.SAFANet(), tspan.SPANNet(feature_channels=48)
+    cases = [(full.Conv_2, (16, 176, 48, 48), True), (full.dec_b0, (16, 176, 48, 48), True),
+             (full.Conv_2, (3, 176, 114, 144), False), (full.Conv_2, (16, 176, 64, 64), False),
+             (full.flow0_a, (16, 358, 48, 48), False), (full.dec_c, (16, 185, 192, 192), False),
+             (span.conv_cat, (16, 192, 96, 96), True), (span.conv_cat, (16, 192, 48, 48), True),
+             (span.conv_cat, (4, 192, 1080, 1920), False)]
+    assert [cudnn_wins(conv, shape) for conv, shape, _ in cases] == [w for *_, w in cases]
     net = tsafa.SAFANet(c=8, num_dec_blocks=1)
-    kinds = ("Conv_2", "flow_a", "flow_b", "dec_a", "dec_b", "dec_c")
-    off = {}
+    narrow_span = tspan.SPANNet(feature_channels=8)
+    planned = ["Conv_2", "flow0_a", "flow0_b", "flow1_a", "flow1_b", "dec_a", "dec_b0", "dec_c",
+               "conv_cat"]
+    calls = {}
+    for module in (net, narrow_span):
+        for name, m in module.named_modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.register_forward_hook(
+                    lambda *a, name=name: calls.update({name: torch.backends.cudnn.enabled}))
+    x = torch.zeros((1, 32, 32, 3))
     for training in (False, True):
-        net.train(training)
-        for kind in kinds:
-            with net._cudnn_off(kind):
-                off[training, kind] = not torch.backends.cudnn.enabled
-    assert torch.backends.cudnn.enabled
-    assert [k for k in kinds if off[False, k]] == list(kinds)
-    assert [k for k in kinds if off[True, k]] == ["flow_a", "dec_a", "dec_c"]
-    calls = []
-    span = tspan.SPANNet(feature_channels=8).train()
-    span.conv_cat.register_forward_hook(lambda *a: calls.append(torch.backends.cudnn.enabled))
-    span(torch.zeros((1, 8, 8, 3)))
-    span.eval()(torch.zeros((1, 8, 8, 3)))
-    assert calls == [True, False]
+        calls.clear()
+        with torch.no_grad():
+            net.train(training)(x, x, torch.tensor([0.5]))
+            narrow_span.train(training)(x[:, :8, :8])
+        assert sorted(k for k, on in calls.items() if not on) == sorted(planned), training
+        assert len(calls) > len(planned) and torch.backends.cudnn.enabled
     with without_cudnn():
         assert not torch.backends.cudnn.enabled

@@ -167,8 +167,11 @@ def warp_transpose_shifted(ct: torch.Tensor, flow: torch.Tensor, t=1.0,
     of q reaches it only from offsets |o| <= max_disp + 1, so the sum runs
     over (2*max_disp + 3)^2 shifted multiply-adds, as the reference's does,
     in its order. Offsets whose hat is 0 at every pixel add exactly 0 and
-    are skipped: the displacements' range (one read-back to the host per
-    call) bounds the offsets that can reach. Each offset's weight is formed
+    are skipped: the displacements' range (``_shift_reach``, one read-back
+    to the host per call) bounds the offsets that can reach. At SAFA's
+    training shape that took a step from 281 to 161-165 ms against every
+    offset with no read-back, on an H100 80GB HBM3 at 700 W (chip_smoke.py;
+    PERF.md §6). Each offset's weight is formed
     once on [N,H,W] and added in place over the channels
     (``addcmul_``). ct [N,H,W,C], flow [N,H,W,2] (dx, dy), t a number or
     [N]; returns ct's dtype.
@@ -187,17 +190,7 @@ def warp_transpose_shifted(ct: torch.Tensor, flow: torch.Tensor, t=1.0,
     dy, dx = sy - ys, sx - xs  # [N,H,W] each
     ctf = ct.to(dt)
     acc = torch.zeros((n, h, w, c), dtype=dt, device=ct.device)
-    # reach[k]: the shifts s in [-R, R] (source p = q + s) whose hat can be
-    # nonzero: a pixel at displacement d reaches q = p - s where |d + s| < 1,
-    # so for d in [lo, hi], s in [-ceil(hi), -floor(lo)] (1 is a float, so
-    # d + s rounds to magnitude 1 or more wherever it is that exactly)
-    lo_hi = torch.stack([dy.amin(), dy.amax(), dx.amin(), dx.amax()]).tolist()
-    reach = []
-    for lo, hi in (lo_hi[:2], lo_hi[2:]):
-        if not (math.isfinite(lo) and math.isfinite(hi)):
-            reach.append(range(big_r, -big_r - 1, -1))
-            continue
-        reach.append(range(min(big_r, -math.floor(lo)), max(-big_r, -math.ceil(hi)) - 1, -1))
+    reach = _shift_reach(dy, dx, big_r)
 
     def hat(d, s):
         return torch.clamp(1.0 - (d + s).abs(), min=0.0)
@@ -217,6 +210,23 @@ def warp_transpose_shifted(ct: torch.Tensor, flow: torch.Tensor, t=1.0,
             wgt = hy[:, :, px] * hx[s_x][:, py, px]
             acc[:, qy0:qy1, qx0:qx1].addcmul_(ctf[:, py, px], wgt[..., None])
     return acc.to(ct.dtype)
+
+
+def _shift_reach(dy: torch.Tensor, dx: torch.Tensor, big_r: int) -> list:
+    """For y and x, the shifts s in [-big_r, big_r] (source p = q + s),
+    descending, whose hat can be nonzero somewhere: a pixel at displacement
+    d reaches q = p - s where |d + s| < 1, so for d in [lo, hi], s in
+    [-ceil(hi), -floor(lo)] (1 is a float, so d + s rounds to magnitude 1
+    or more wherever it is that exactly). Reads the displacements' range
+    back to the host: one sync per call."""
+    lo_hi = torch.stack([dy.amin(), dy.amax(), dx.amin(), dx.amax()]).tolist()
+    reach = []
+    for lo, hi in (lo_hi[:2], lo_hi[2:]):
+        if not (math.isfinite(lo) and math.isfinite(hi)):
+            reach.append(range(big_r, -big_r - 1, -1))
+            continue
+        reach.append(range(min(big_r, -math.floor(lo)), max(-big_r, -math.ceil(hi)) - 1, -1))
+    return reach
 
 
 def backward_warp(img: torch.Tensor, flow: torch.Tensor, t=1.0, border: str = "constant",

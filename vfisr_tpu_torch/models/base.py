@@ -85,6 +85,39 @@ def without_cudnn():
         torch.backends.cudnn.enabled = enabled
 
 
+# The input shapes (in channels, out channels, kernel, N, H, W) at which
+# cuDNN's heuristic plan was measured to beat PyTorch's own convolution,
+# forward, f32 with TF32 off, on an H100 80GB HBM3 at 700 W (chip_smoke.py's
+# conv lines; PERF.md §5), among the convs that ``planned_conv`` runs.
+CUDNN_WINS = frozenset({
+    (176, 176, 3, 16, 48, 48),  # SAFA's 176->176 convs, training: 1.038 against 1.857 ms
+    (192, 48, 1, 16, 96, 96),  # SPAN x2's conv_cat, training: 0.188 against 0.310 ms
+    (192, 48, 1, 16, 48, 48),  # SPAN x4's conv_cat, training: 0.072 against 0.250 ms
+})
+
+
+def cudnn_wins(conv: torch.nn.Conv2d, shape) -> bool:
+    """Whether ``planned_conv`` runs conv on an NCHW input of shape with
+    cuDNN: only at a shape in ``CUDNN_WINS``."""
+    n, c, h, w = shape
+    return (c, conv.out_channels, conv.kernel_size[0], n, h, w) in CUDNN_WINS
+
+
+def planned_conv(conv: torch.nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """conv(x), without cuDNN unless ``cudnn_wins`` at x's shape: the rule
+    of SAFA's 1/4-resolution convs at 176 channels and its dec_c, and of
+    SPAN's conv_cat. At every other measured shape cuDNN lost (SAFA's 1080p
+    tiles: 24-361 ms and 17-34 GB of workspace against 1-2 ms; its
+    training flow*_a, dec_a and dec_c; SPAN's conv_cat at 1080p), and a
+    shape never measured takes PyTorch's own convolution too: where that
+    lost, it lost by 3.5x at most (0.25 ms), where cuDNN's plan lost by up
+    to 190x (361 ms)."""
+    if cudnn_wins(conv, x.shape):
+        return conv(x)
+    with without_cudnn():
+        return conv(x)
+
+
 def upscale_frame(frame: np.ndarray, scale: float, method: str, device) -> np.ndarray:
     """One HWC uint8 frame resized by ``scale`` as uint8 (OpenCV saturate
     rounding), the reference models' ``upscale``."""

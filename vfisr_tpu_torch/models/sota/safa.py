@@ -26,20 +26,20 @@ warps as the reference does: the flow gradient from K2 (in channel groups
 at 176 channels), the features' gradient from the dense shifted adjoint
 (``img_grad='shifted:R'``, R = ceil(feat_warp_clamp)).
 
-Convolutions run f32 (``load`` turns TF32 off). Which run without cuDNN
-(``models/base.py::without_cudnn``) was measured per conv shape, forward
-and backward, on an H100 80GB HBM3 at 700 W (chip_smoke.py's conv lines;
-PERF.md §5), and
-depends on the shapes, so on the mode (``SAFANet.NO_CUDNN``). In inference
-(a 1080p tile: batch 3, 114x144 at 1/4) the 176-channel convs at 1/4
-resolution (``Conv_2``, the flow stages' ``_a``/``_b``, the decoder) and
-``dec_c`` run without it: its heuristic plans took 24-442 ms and 17-34 GB
-of workspace per conv there, where PyTorch's own convolution takes 1-2 ms.
-In training (the trainer's batch 16, crop 192: 48x48 at 1/4) cuDNN's plans
-win at the 176->176 convs, so only the forwards of ``flow*_a``, ``dec_a``
-(by 5%) and ``dec_c`` (by 44%) leave cuDNN. Every backward runs with cuDNN,
-which won at every training shape. The encoder's strided convs and the 5-
-and 12-channel heads keep cuDNN.
+Convolutions run f32 (``load`` turns TF32 off). Which leave cuDNN is
+decided per input shape, by ``models/base.py::planned_conv``, from the
+timings of each conv shape forward and backward with cuDNN and without on
+an H100 80GB HBM3 at 700 W (chip_smoke.py's conv lines; PERF.md §5): the
+176-channel convs at 1/4 resolution (``Conv_2``, the flow stages'
+``_a``/``_b``, the decoder) and ``dec_c`` go through it. On 1080p tiles
+(batch 3, 114x144 at 1/4) all of them run without cuDNN: its heuristic
+plans took 24-361 ms and 17-34 GB of workspace per conv there, where
+PyTorch's own convolution takes 1-2 ms. At the trainer's shapes (batch 16,
+crop 192: 48x48 at 1/4) cuDNN's plans win at the 176->176 convs, so only
+``flow*_a``, ``dec_a`` and ``dec_c`` leave it; a shape never measured
+leaves it too. Every backward runs with cuDNN, which won at every training
+shape. The encoder's strided convs and the 5- and 12-channel heads keep
+cuDNN.
 
 Flax conventions kept: ``nn.Conv(padding=1)`` pads symmetrically, also at
 stride 2; every ``jax.image.resize(..., "bilinear")`` here is an upsampling
@@ -51,10 +51,8 @@ weights/safa.npz as it is.
 
 from __future__ import annotations
 
-import contextlib
-from typing import List, Optional, Tuple
-
 import math
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,7 +63,7 @@ from vfisr_tpu_torch.core.frames import (from_batched, pad_reflect, pad_to_multi
                                          unpad)
 from vfisr_tpu_torch.core.resize import resize, scale_size
 from vfisr_tpu_torch.core.warp import backward_warp
-from vfisr_tpu_torch.models.base import JointModel, ModelInfo, upscale_frame, without_cudnn
+from vfisr_tpu_torch.models.base import JointModel, ModelInfo, planned_conv, upscale_frame
 from vfisr_tpu_torch.models.sota.span import depth_to_space
 from vfisr_tpu_torch.models.sota.vfimamba import _nchw, _nhwc, _upsample
 
@@ -77,12 +75,6 @@ def _lrelu(x: torch.Tensor) -> torch.Tensor:
 class SAFANet(nn.Module):
     """(img0, img1 NHWC [N,H,W,3] in [0, 1], timestep [N]) -> the frame at
     that timestep at 2x resolution, NHWC [N, 2H, 2W, 3]."""
-
-    # the convs whose forward runs without cuDNN, in inference (False) and
-    # in training (True; module docstring), by kind: Conv_2, flow*_a,
-    # flow*_b, dec_a, dec_b*, dec_c
-    NO_CUDNN = {False: ("Conv_2", "flow_a", "flow_b", "dec_a", "dec_b", "dec_c"),
-                True: ("flow_a", "dec_a", "dec_c")}
 
     def __init__(self, c: int = 176, num_dec_blocks: int = 8, feat_warp_clamp: float = 8.0):
         super().__init__()
@@ -105,17 +97,8 @@ class SAFANet(nn.Module):
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW frame -> NHWC features at 1/4 (contiguous: the warps read
         them as they are)."""
-        f = _lrelu(self.Conv_1(_lrelu(self.Conv_0(x))))
-        with self._cudnn_off("Conv_2"):
-            f = self.Conv_2(f)
+        f = planned_conv(self.Conv_2, _lrelu(self.Conv_1(_lrelu(self.Conv_0(x)))))
         return _nhwc(f).contiguous()
-
-    def _cudnn_off(self, kind: str):
-        """``without_cudnn()`` around a conv of this kind where ``NO_CUDNN``
-        says so for the module's mode."""
-        if kind in self.NO_CUDNN[self.training]:
-            return without_cudnn()
-        return contextlib.nullcontext()
 
     def _feat_warp(self, f: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         """NHWC features by an NCHW 2-channel flow clipped to the feature
@@ -137,10 +120,8 @@ class SAFANet(nn.Module):
         for i in range(2):
             inp = torch.cat([self._feat_warp(f0, flow[:, 0:2]), self._feat_warp(f1, flow[:, 2:4]),
                              t_map4, mask, flow], dim=1)
-            with self._cudnn_off("flow_a"):
-                hdd = _lrelu(getattr(self, f"flow{i}_a")(inp))
-            with self._cudnn_off("flow_b"):
-                hdd = _lrelu(getattr(self, f"flow{i}_b")(hdd)) + hdd
+            hdd = _lrelu(planned_conv(getattr(self, f"flow{i}_a"), inp))
+            hdd = _lrelu(planned_conv(getattr(self, f"flow{i}_b"), hdd)) + hdd
             out = getattr(self, f"flow{i}_head")(hdd)
             flow = flow + out[:, :4]
             mask = mask + out[:, 4:5]
@@ -155,14 +136,11 @@ class SAFANet(nn.Module):
 
         agg = torch.cat([self._feat_warp(f0, flow[:, 0:2]), self._feat_warp(f1, flow[:, 2:4]),
                          t_map4], dim=1)
-        with self._cudnn_off("dec_a"):
-            d = _lrelu(self.dec_a(agg))
-        with self._cudnn_off("dec_b"):
-            for i in range(self.num_dec_blocks):
-                d = _lrelu(getattr(self, f"dec_b{i}")(d)) + d
+        d = _lrelu(planned_conv(self.dec_a, agg))
+        for i in range(self.num_dec_blocks):
+            d = _lrelu(planned_conv(getattr(self, f"dec_b{i}"), d)) + d
         d = torch.cat([_upsample(d, (h, w)), _nchw(fused), _nchw(warped0), _nchw(warped1)], dim=1)
-        with self._cudnn_off("dec_c"):
-            d = _lrelu(self.dec_c(d))
+        d = _lrelu(planned_conv(self.dec_c, d))
         out = depth_to_space(self.ps_head(d), 2)
         base = _nhwc(_upsample(_nchw(fused), (2 * h, 2 * w)))
         return torch.clamp(base + out, 0.0, 1.0)

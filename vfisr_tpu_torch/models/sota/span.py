@@ -12,9 +12,10 @@ channels read as (r, r, 3), row offset, column offset, colour
 (3, r, r), so ``depth_to_space`` here reshapes and permutes explicitly.
 
 On the GPU every conv runs f32 (``load`` turns TF32 off) with cuDNN's
-plan, but ``conv_cat`` in inference, which runs without cuDNN there: its
-plan was measured to lose at 1080p (``models/base.py::without_cudnn``) and
-to win at the trainer's shapes (batch 16, crop 192; PERF.md §5).
+plan, but ``conv_cat``, which goes through ``models/base.py::planned_conv``:
+cuDNN's plan was measured to lose at 1080p and to win at the trainer's
+shapes (batch 16, crop 192; PERF.md §5), and a shape never measured runs
+without it.
 
 ``SPANModel`` follows the reference's contract: the fixed x2 or x4 net,
 then Lanczos4 to the exact target size, clipped to [0, 1]; interpolation
@@ -26,8 +27,6 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import contextlib
-
 import numpy as np
 import torch
 import torch.nn as nn
@@ -35,7 +34,7 @@ import torch.nn.functional as F
 
 from vfisr_tpu_torch.core.frames import from_batched, to_batched
 from vfisr_tpu_torch.core.resize import resize, scale_size
-from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, TwoStageModel, without_cudnn
+from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, TwoStageModel, planned_conv
 
 
 def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -85,9 +84,7 @@ class SPANNet(nn.Module):
         h, _ = self.block_4(h)
         h, b5 = self.block_5(h)
         final = self.conv_2(self.block_6(h)[0])
-        # cuDNN's plan for the 1x1 conv_cat loses in inference, wins in training
-        with contextlib.nullcontext() if self.training else without_cudnn():
-            agg = self.conv_cat(torch.cat([feat, final, b1, b5], dim=1))
+        agg = planned_conv(self.conv_cat, torch.cat([feat, final, b1, b5], dim=1))
         return depth_to_space(self.upsampler(agg), self.upscale)
 
 
