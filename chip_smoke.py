@@ -88,8 +88,10 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    frames at 2560x1440 uint8). Prints ms per pair, ms per tile forward and
    its conv FLOP, peak memory over resident, each distinct conv shape of a
    tile with cuDNN's heuristic plan and with cuDNN off, K1 per launch shape
-   as in step 7, and the midpoints' PSNR against the scene's true frames
-   and against frame duplication (printed only);
+   as in step 7 (for the feature warps in channel groups also a line with
+   the kernel, its bound, grid_sample beside it and the plan), and the
+   midpoints' PSNR against the scene's true frames and against frame
+   duplication (printed only);
 11. SPAN: get_model("span", load=True) (x2, weights/span_x2.npz, every
    parameter checked) upscales 4 frames of the scene 1920x1080 -> 2560x1440
    (ms, PSNR against Lanczos4, its conv shapes as in step 10);
@@ -113,7 +115,8 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    adjoints (the features' gradient). Checks: origins at all 24 launches;
    K2 against its twin at every launch and at synthetic cases of each
    shape (1e-5 of the largest |cg| with f32 windows); K1 against its twin
-   at every launch; each grouped K2 launch twice, bit-identical; the whole
+   at every launch; each grouped K2 launch twice, bit-identical, and in
+   one chunk per tile (one launch per call, no scratch); the whole
    step with the kernels against the same step with both plain twins
    (deterministic cuDNN; loss 1e-5 relative, gradients 1e-4 of each
    tensor's largest). Then SAFA_TRAIN_STEPS timed steps, counted (ms/step,
@@ -126,7 +129,8 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    backward with cuDNN's plan and without (the path's forward choice
    printed), and per launch shape the kernels alone (CUDA-graph replay),
    their wrappers, bounds, plain twins and grid_sample (its grid gradient
-   for K2);
+   for K2), and for each launch shape in channel groups a line with the
+   kernel, its bound, the library call and the plan;
 14. trains SPAN x2 and x4 (weights/span_x2.npz, span_x4.npz) as the trainer
    does (``make_sr_train_step``, crisp scenes at 192, the input
    area-resized to 96 or 48; batch 16, no remat): SPAN_TRAIN_STEPS timed
@@ -624,6 +628,28 @@ def shape_times(kw, recs: list, timer) -> dict:
 
 def shape_key(a: dict) -> tuple:
     return (tuple(a["img"].shape), a["img"].dtype, a["compute_dtype"], a["r"], a["border"])
+
+
+def plan_text(pl: dict) -> str:
+    """A launch's plan (``ops/cuda/warp.py::plan``) in words."""
+    if not pl["grouped"]:
+        return f"whole-C, {pl['split']} row slice(s) of {pl['rows']} rows, {pl['ctas']} CTAs"
+    return (f"channel groups, {pl['ctas']} CTAs: {pl['split']} block(s) of {pl['pixels']} "
+            f"pixels per tile x {pl['chunks']} chunk(s) of {-(-pl['groups'] // pl['chunks'])} "
+            f"groups of {pl['cg']} channels, {pl['stages']} ring slots, {pl['smem']} B shared")
+
+
+def print_grouped(kw, label: str, unit: str, key: tuple, a: dict, v: dict, grad: bool) -> None:
+    """One line per launch shape in channel groups: the kernel, its bound,
+    the library call timed beside it, and the plan."""
+    pl = kw.plan(a["img"], a["r"], a["compute_dtype"], grad)
+    if not pl["grouped"]:
+        return
+    lib = "grid_sample grad" if grad else "grid_sample"
+    print(f"grouped {'K2' if grad else 'K1'} {label} {key[0]} x{v['n']}/{unit}: kernel "
+          f"{v['kernel']:.4f} ms, bound {v['bound']:.4f} ms ({v['kernel'] / v['bound']:.2f}x), "
+          f"{lib} {v['library']:.4f} ms ({'faster' if v['kernel'] < v['library'] else 'SLOWER'}: "
+          f"{v['library'] / v['kernel']:.2f}x); {plan_text(pl)}")
 
 
 def _recording(kw, recs: list):
@@ -1355,6 +1381,8 @@ def safa_phase(kw) -> dict:
               f"{key[4]} x{v['n']}/pair: kernel {v['kernel']:.4f} ms, bound {v['bound']:.4f} ms "
               f"({v['by']}), wrapper host {v['host']:.4f} ms, wrapper {v['wrapper']:.4f} ms, "
               f"plain {v['plain']:.4f} ms, grid_sample {v['library']:.4f} ms")
+        print_grouped(kw, "safa", "pair", key, next(a for a in recorded if shape_key(a) == key),
+                      v, False)
     fields = ("kernel", "bound", "host", "wrapper", "plain", "library")
     total = {f: sum(v["n"] * v[f] for v in by_shape.values()) for f in fields}
     total["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
@@ -1493,6 +1521,7 @@ def per_shape_totals(kw, label: str, unit: str, recs: list, timer) -> dict:
               f"{v['kernel']:.4f} ms, bound {v['bound']:.4f} ms ({v['by']}), wrapper host "
               f"{v['host']:.4f} ms, wrapper {v['wrapper']:.4f} ms, plain {v['plain']:.4f} ms, "
               f"grid_sample{' grad' if timer is time_grad_launch else ''} {v['library']:.4f} ms")
+        print_grouped(kw, label, unit, key, a, v, timer is time_grad_launch)
     tot = {f: sum(v["n"] * v[f] for v in by_shape.values()) for f in fields}
     tot["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
     print(f"{label} per {unit}: {len(recs)} launches, " + ", ".join(
@@ -1565,6 +1594,10 @@ def train_safa_phase(kw) -> tuple:
             and all(a["img"].shape[-1] == 176 for a in grouped1 + grouped2),
             "SAFA's feature warps take channel groups at 176 channels, in K1 and K2")
     require(len(rec_adj) == ADJOINTS_PER_SAFA_STEP, f"{len(rec_adj)} shifted adjoints")
+    # grouped K2 in one chunk per tile: one launch per call, no scratch
+    for a in grouped2:
+        pl = kw.plan(a["img"], a["r"], a["compute_dtype"], grad=True)
+        require(pl["chunks"] == 1, f"grouped K2 {_label(a)}: one chunk per tile ({plan_text(pl)})")
     require(loss == loss and abs(loss) < float("inf"), "finite loss")
     t0 = _phase("train_safa_record", t0)
 

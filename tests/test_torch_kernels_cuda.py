@@ -248,11 +248,13 @@ def test_warp_kernel_channel_groups_unaligned_image(c):
 @pytest.mark.cuda
 def test_plans_of_the_paths_and_k2_refusal():
     """The flagship's, training's and adaptive path's K1 launches keep the
-    whole-C layout; K1 and K2 at 176 channels take groups (SAFA's feature
-    warps at a 1080p tile and at the training crop); K2 at the RIFE
-    training's shapes keeps the whole-C layout. K2 refuses nothing it used
-    to take, and no longer refuses a window it cannot hold whole: it
-    launches once there."""
+    whole-C layout (one group, one chunk, one slot); K1 and K2 at 176
+    channels take groups (SAFA's feature warps at a 1080p tile and at the
+    training crop), walked by CTAs of at most 1024 pixels through a ring
+    of 2 or 3 slots, K2 in one chunk per tile there (one launch, no
+    scratch); K2 at the RIFE training's shapes keeps the whole-C layout.
+    K2 refuses nothing it used to take, and no longer refuses a window it
+    cannot hold whole: it launches once there."""
     _needs_card()
     f32, bf = torch.float32, torch.bfloat16
     for shape, dt, r, cd in [((2, 1088, 1920, 3), bf, (3, 4), bf), ((1, 1080, 1920, 5), f32, 8, f32),
@@ -261,15 +263,18 @@ def test_plans_of_the_paths_and_k2_refusal():
         img = torch.empty(shape, dtype=dt, device="cuda")
         pl = tw.plan(img, r, cd)
         assert pl is not None and pl["grouped"] == 0 and pl["groups"] == 1, (shape, pl)
+        assert (pl["chunks"], pl["stages"]) == (1, 1), (shape, pl)
     for shape, r, cd in [((16, 192, 192, 3), (4, 6), bf), ((16, 96, 96, 3), (2, 4), bf),
                          ((16, 192, 192, 3), 8, f32)]:
         pl = tw.plan(torch.empty(shape, device="cuda"), r, cd, grad=True)
         assert pl is not None and pl["grouped"] == 0 and pl["groups"] == 1, (shape, pl)
     for shape in [(3, 114, 144, 176), (16, 48, 48, 176)]:
         img = torch.rand(shape, device="cuda")
-        assert tw.plan(img, 8, f32)["grouped"] == 1
-        pl = tw.plan(img, 8, f32, grad=True)
-        assert pl is not None and pl["grouped"] == 1 and pl["groups"] * pl["cg"] >= 176, pl
+        for grad in (False, True):
+            pl = tw.plan(img, 8, f32, grad=grad)
+            assert pl is not None and pl["grouped"] == 1 and pl["groups"] * pl["cg"] >= 176, pl
+            assert pl["cg"] == 4 and 0 < pl["pixels"] <= 1024 and pl["stages"] in (2, 3), pl
+            assert pl["chunks"] == 1 or not grad, pl
     flow = torch.zeros((16, 48, 48, 2), device="cuda")
     before = tw.grad_launches
     gflow, cg = tw.warp_windowed_grad(img, flow, 1.0, torch.ones_like(img), 8, "replicate", f32)
@@ -334,3 +339,84 @@ def test_warp_grad_kernel_channel_groups_deterministic(c):
     assert tw.plan(img, 8, torch.float32, grad=True)["grouped"] == 1
     for x, y in ((a, b), (a, u)):
         assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+
+
+# The grouped kernels' own edge cases, K1 and K2 in one test each: SAFA's two
+# feature shapes (a 1080p tile and the training crop), ragged last groups (C
+# = 33: element by element) and chunks (C = 177), bf16 windows and images,
+# the constant border, H = 114 and W = 48, 144 and 300, a t per image, and
+# flows that reach the window's far rows and columns (_torch_port's
+# adversarial flows: +-300 px clamp every residual to the window's edge).
+# (n, h, w, c, img dtype, window dtype, border, flow)
+GROUPED_EDGES = [
+    (3, 114, 144, 176, torch.float32, torch.float32, "replicate", "safa"),
+    (16, 48, 48, 176, torch.float32, torch.float32, "replicate", "safa"),
+    (3, 114, 144, 176, torch.float32, torch.bfloat16, "constant", "past_r"),
+    (16, 48, 48, 176, torch.float32, torch.float32, "constant", "large"),
+    (1, 114, 300, 33, torch.float32, torch.float32, "replicate", "per_batch_t"),
+    (2, 114, 144, 177, torch.float32, torch.float32, "constant", "tie"),
+    (2, 48, 48, 177, torch.float32, torch.bfloat16, "replicate", "odd_row"),
+    (1, 114, 300, 177, torch.float32, torch.float32, "replicate", "large"),
+    (3, 114, 144, 176, torch.bfloat16, torch.bfloat16, "replicate", "per_batch_t"),
+    (1, 48, 48, 176, torch.float32, torch.float32, "replicate", "safa"),
+]
+
+
+def _grouped_edge(n, h, w, c, img_dt, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "safa":
+        flow, t = np.clip(smooth_flow(rng, n, h, w, 6.0, 3.0), -8, 8), 1.0
+    elif kind == "past_r":
+        flow, t = smooth_flow(rng, n, h, w, 25.0, 4.0), 1.0
+    else:
+        flow, t = adversarial_flow(kind, rng, n, h, w)
+    t = torch.from_numpy(t).cuda() if isinstance(t, np.ndarray) else t
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda().to(img_dt)
+    ct = torch.from_numpy(rng.normal(0, 1, (n, h, w, c)).astype(np.float32)).cuda().to(img_dt)
+    return img, torch.from_numpy(np.ascontiguousarray(flow)).cuda(), t, ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,img_dt,dt,border,kind", GROUPED_EDGES)
+def test_grouped_kernels_edges_match_plain(n, h, w, c, img_dt, dt, border, kind):
+    """Grouped K1 against its twin (bit for bit with f32 images and
+    windows, else 2/255) and grouped K2 against its twin (tolerances as
+    above, relative to the largest |cg|), one launch each; both plans take
+    channel groups."""
+    _needs_card()
+    img, flow, t, ct = _grouped_edge(n, h, w, c, img_dt, kind, 1000 + c + w)
+    assert tw.plan(img, 8, dt)["grouped"] == 1 and tw.plan(img, 8, dt, grad=True)["grouped"] == 1
+    before, before_grad = tw.launches, tw.grad_launches
+    out = tw.warp_windowed(img, flow, t, 8, border, dt)
+    gflow, cg = tw.warp_windowed_grad(img, flow, t, ct, 8, border, dt)
+    ref = tw.warp_windowed_plain(img, flow, t, 8, border, dt)
+    ref_gflow, ref_cg = tw.warp_windowed_grad_plain(img, flow, t, ct, 8, border, dt)
+    torch.cuda.synchronize()
+    assert (tw.launches, tw.grad_launches) == (before + 1, before_grad + 1)
+    if img_dt == dt == torch.float32:
+        assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+    else:
+        assert _err(out, ref) <= TOL[dt]
+    scale = ref_cg.abs().max().item()
+    assert scale > 0
+    tol = TOL[dt if img_dt == torch.float32 else torch.bfloat16]
+    assert (cg - ref_cg).abs().max().item() <= tol * scale
+    assert (gflow.float() - ref_gflow.float()).abs().max().item() <= tol * scale * 1.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c", [(3, 114, 144, 176), (16, 48, 48, 176), (1, 48, 48, 177)])
+def test_grouped_k2_twice_bit_identical(n, h, w, c):
+    """Grouped K2 twice on the same inputs gives the same bits: at SAFA's
+    two shapes (one chunk per tile, one launch) and on a small image whose
+    plan takes several chunks (their partial sums added in chunk order)."""
+    _needs_card()
+    img, flow, t, ct = _grouped_edge(n, h, w, c, torch.float32, "safa", 7)
+    pl = tw.plan(img, 8, torch.float32, grad=True)
+    assert pl["grouped"] == 1 and (pl["chunks"] == 1) == (n > 1), pl
+    a = tw.warp_windowed_grad(img, flow, t, ct, 8, "replicate", torch.float32)
+    b = tw.warp_windowed_grad(img, flow, t, ct, 8, "replicate", torch.float32)
+    ref_gflow, ref_cg = tw.warp_windowed_grad_plain(img, flow, t, ct, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert (a[1] - ref_cg).abs().max().item() <= TOL[torch.float32] * ref_cg.abs().max().item()

@@ -51,30 +51,50 @@
 // rounding steps and their order are those of the plain twin
 // (ops/cuda/warp.py::warp_windowed_plain).
 //
-// Channel groups (K1). A window of all C channels that fits in shared
-// memory at 4 rows per CTA takes the layout above, unchanged (K1's kGrouped
-// = false instantiation is the kernel without groups). A wider one
-// (SAFA's 176-channel feature warps: K1 took at most 9 channels at f32, r =
-// 8) is split into groups of cg channels, one more grid axis: each CTA
-// takes one tile, one row slice and one group, computes the tile origin and
-// each pixel's coordinates and weights itself, and copies only its group's
-// channels of the window: ww runs of cg channels per window row, each in
-// 16-byte cp.async chunks where C and cg channels are whole 16-byte chunks
-// (else element by element), and writes its group's channels of each output
-// pixel directly (a run of cg channels; staging buys no longer run). The
-// per-channel arithmetic is the same, so a grouped launch gives the same
-// bits as the whole-C one and the plain twin.
-//
-// K2 in channel groups (kGrouped, the same plan as K1's). K2 sums ct * d/ds
-// over channels in f32, in channel order inside a thread; a group's CTA can
-// only sum its own channels. So each CTA writes its group's partial sums
-// (x, y) to an f32 scratch [groups, n, h, w, 2], in channel order inside the
-// group, and a second small kernel (grad_groups_sum_kernel) adds the groups
-// in group order and writes cg and grad_flow = cg * t. No atomics: two
-// identical launches give the same bits. The sum's order differs from the
-// whole-C launch's, so the grouped result equals the twin's within f32
-// rounding, not bit for bit. The whole-C instantiation (kGrouped = false)
-// is the kernel without groups, unchanged.
+// Channel groups (warp_grouped_kernel: K1 and K2). A window of all C
+// channels that fits in shared memory at 4 rows per CTA takes the whole-C
+// layout above (warp_windowed_kernel, warp_windowed_grad_kernel). A wider
+// one (SAFA's 176-channel feature warps: past 9 channels at f32, r = 8 in
+// K1, 10 in K2) is walked in channel groups of one 16-byte vector each (4
+// f32 or 8 bf16 channels). What bounds it is bytes too: img read once and
+// out written once (K2: img and ct read once), ~0.02 ms at SAFA's shapes.
+// Against that stand the window's halo (nsh - 1 = 17 rows and columns at
+// r = 8) and the image's layout: a pixel's 176 channels are one 704-byte
+// run, so a copy or store of one group per pixel moves 16 bytes per
+// 704-byte line, and the memory system then spends a request on every 16
+// bytes. The design:
+// - A CTA's unit is (tile, 16x16 pixel block, channel chunk), one pixel
+//   per thread, so no thread idles on a 48- or 144-wide image. The plan
+//   takes the fewest chunks (runs of consecutive groups) per tile that
+//   give every SM a CTA: one at SAFA's shapes.
+// - The prologue runs once per CTA, not once per group: the tile origin,
+//   each pixel's coordinates, weights and tap offsets, and the footprint:
+//   the box of content rows and columns that the block's taps reach, after
+//   the residual clamp. Only that box is copied, so SAFA's small trained
+//   flows copy a few halo rows and columns, not 17; a flow up to the clamp
+//   still finds its taps (a ring slot is sized for one group of the worst
+//   box at launch).
+// - A ring of kRingSlots slots in shared memory: cp.async with commit
+//   groups, the next slots in flight while one is computed (one barrier per
+//   slot). A slot holds as many groups of the box as fit (a power of two,
+//   up to 8): each box column's groups are one run, copied from one
+//   contiguous run of img (up to a 128-byte line) and swizzled so that the
+//   lanes reading one group of consecutive columns hit distinct banks.
+// - K1 gives a slot's (pixel, group) items to the threads group fastest,
+//   reading each pixel's taps and weights from a table in shared memory,
+//   so a warp writes each pixel's groups of the slot as one run of 16-byte
+//   stores.
+// - K2 keeps its pixel per thread and accumulates it over all C channels
+//   in channel order, across the slots, as the whole-C kernel does; the
+//   block's cotangent rides in the same slot (copied the same way); it
+//   writes cg and grad_flow = cg * t itself: one launch. Where the plan
+//   takes several chunks per tile the chunks' partial sums go to an f32
+//   scratch [chunks, n, h, w, 2] and grad_chunks_sum_kernel adds them in
+//   chunk order. No atomics: two launches give the same bits.
+// Where C channels are not whole 16-byte vectors or a pointer is not
+// 16-byte aligned, the same ring is filled and written element by element.
+// The per-channel arithmetic is the whole-C kernels': grouped K1 gives the
+// plain twin's bits.
 //
 // Plain C interface, no PyTorch headers: built by nvcc into a shared
 // library and loaded with ctypes. Each entry returns a cudaError_t: of the
@@ -87,6 +107,7 @@
 
 #include <algorithm>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -109,10 +130,11 @@ struct Params {
   int pt, pl;           // content origin inside the canvas
   int ry, rx;           // residual radii
   int split, rows;      // CTAs per tile (row slices), output rows per CTA
-  int grouped;          // 1: channel groups (K1); 0: the whole-C layout
-  int groups, cg;       // channel groups per tile and channels per group
-                        // (whole C: 1 and c); grid x = tx_n * groups
-  int vec16;            // grouped: the window moves in 16-byte chunks
+  int grouped;          // 1: channel groups (warp_grouped_kernel); 0: whole C
+  int groups, cg;       // channel groups per pixel and channels per group
+                        // (whole C: 1 and c; grouped: 16-byte groups)
+  int vec16;            // grouped: 16-byte copies and stores (else element
+                        // by element)
   int lanes, subrows;   // threads per output row (w rounded up to 32, at most
                         // 256) and rows computed side by side
   int wh, ww;           // window rows and columns of a CTA
@@ -124,6 +146,15 @@ struct Params {
   float ylo, yhi;       // source-coordinate clip bounds (canvas space)
   float xlo, xhi;
   float ry_max, rx_max;  // nsh - 1.001: residual clamp
+};
+
+// The rest of a channel-group plan, a kernel parameter of the grouped
+// kernels only: a larger Params changes how NVVM compiles the whole-C
+// kernels (it made them up to 5% slower on the H100).
+struct GroupPlan {
+  int bx_n;                 // pixel blocks across a tile (split per tile)
+  int chunks, chunk_vec;    // chunks of chunk_vec groups per tile
+  int stage_bytes;          // bytes of a ring slot
 };
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
@@ -235,50 +266,23 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // allocations are at least 256-byte aligned and sized). Columns outside
 // [xa, xb) are never read: the taps clamp into it (replicate) or read zero
 // (constant).
-//
-// kGrouped: channels [c0, c0 + cn) of each column only, as (xb - xa) runs
-// of cn channels per row, packed; row_off[i] = i * pitch.
-template <typename TI, bool kConstant, bool kGrouped>
+template <typename TI, bool kConstant>
 __device__ __forceinline__ void fill_window(const TI* __restrict__ src, unsigned char* win,
-                                            int* row_off, int oy_row, int xa, int xb, int c0,
-                                            int cn, const Params& p) {
+                                            int* row_off, int oy_row, int xa, int xb,
+                                            const Params& p) {
   constexpr int kB = static_cast<int>(sizeof(TI));
-  if constexpr (!kGrouped) {
-    const int run = (xb - xa) * p.c * kB;  // bytes
-    const int chunks = run / 16 + 2;  // enough from any alignment; p.pitch holds them
-    for (int e = threadIdx.x; e < p.wh * chunks; e += kThreads) {
-      const int i = e / chunks, q = e - i * chunks;
-      int yc = oy_row + i - p.pt;
-      const bool ok = !kConstant || (yc >= 0 && yc < p.h);
-      yc = min(max(yc, 0), p.h - 1);
-      const unsigned char* g = reinterpret_cast<const unsigned char*>(
-          src + (static_cast<size_t>(yc) * p.w + xa) * p.c);
-      const int off = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
-      if (q == 0) row_off[i] = ok ? i * p.pitch + off : -1;
-      if (ok && q * 16 < off + run) cp_async16(win + i * p.pitch + q * 16, g - off + q * 16);
-    }
-  } else {
-    // one unit: a 16-byte chunk of a column's run, or one element
-    const int unit = p.vec16 ? 16 : kB;
-    const int per_col = cn * kB / unit, per_row = (xb - xa) * per_col;
-    for (int e = threadIdx.x; e < p.wh * per_row; e += kThreads) {
-      const int i = e / per_row, k = e - i * per_row;
-      const int j = k / per_col, q = k - j * per_col;
-      int yc = oy_row + i - p.pt;
-      const bool ok = !kConstant || (yc >= 0 && yc < p.h);
-      yc = min(max(yc, 0), p.h - 1);
-      if (k == 0) row_off[i] = ok ? i * p.pitch : -1;
-      if (!ok) continue;
-      const unsigned char* g = reinterpret_cast<const unsigned char*>(
-          src + (static_cast<size_t>(yc) * p.w + xa + j) * p.c + c0) + q * unit;
-      unsigned char* d = win + i * p.pitch + (j * per_col + q) * unit;
-      if (p.vec16)
-        cp_async16(d, g);
-      else if (kB == 4)
-        *reinterpret_cast<unsigned*>(d) = __ldg(reinterpret_cast<const unsigned*>(g));
-      else
-        *reinterpret_cast<unsigned short*>(d) = __ldg(reinterpret_cast<const unsigned short*>(g));
-    }
+  const int run = (xb - xa) * p.c * kB;  // bytes
+  const int chunks = run / 16 + 2;  // enough from any alignment; p.pitch holds them
+  for (int e = threadIdx.x; e < p.wh * chunks; e += kThreads) {
+    const int i = e / chunks, q = e - i * chunks;
+    int yc = oy_row + i - p.pt;
+    const bool ok = !kConstant || (yc >= 0 && yc < p.h);
+    yc = min(max(yc, 0), p.h - 1);
+    const unsigned char* g = reinterpret_cast<const unsigned char*>(
+        src + (static_cast<size_t>(yc) * p.w + xa) * p.c);
+    const int off = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
+    if (q == 0) row_off[i] = ok ? i * p.pitch + off : -1;
+    if (ok && q * 16 < off + run) cp_async16(win + i * p.pitch + q * 16, g - off + q * 16);
   }
   cp_async_wait_all();
 }
@@ -360,25 +364,18 @@ __device__ __forceinline__ float row_sum(float w0, float v0, float w1, float v1)
 
 // The CTA's place: tile (n, ty, tx), its row slice, whose first output
 // row is the tile's row0 and which has `rows_n` rows inside the content,
-// and its channels [c0, c0 + cn).
+// and its channels (all C).
 struct Place {
   int n, ty, tx, row0, y0, rows_n, c0, cn;
 };
 
-template <bool kGrouped>
 __device__ __forceinline__ Place place(const Params& p) {
   Place c;
   c.n = blockIdx.z;
   c.ty = blockIdx.y / p.split;
-  if constexpr (kGrouped) {
-    c.tx = blockIdx.x / p.groups;
-    c.c0 = (blockIdx.x - c.tx * p.groups) * p.cg;
-    c.cn = min(p.cg, p.c - c.c0);
-  } else {
-    c.tx = blockIdx.x;
-    c.c0 = 0;
-    c.cn = p.c;
-  }
+  c.tx = blockIdx.x;
+  c.c0 = 0;
+  c.cn = p.c;
   c.row0 = (blockIdx.y % p.split) * p.rows;
   c.y0 = c.ty * kTh + c.row0;
   c.rows_n = min(p.rows, p.h - c.y0);
@@ -469,15 +466,14 @@ __device__ __forceinline__ Window window_of(unsigned char* smem, int2 o, int cn,
 // K1. kBf16: window values, horizontal weights and horizontal sums in bf16
 // (compute_dtype=bfloat16); the vertical accumulation stays f32.
 // kConstant: zero canvas outside the content instead of edge replication.
-// kGrouped: the CTA takes one channel group (the whole-C instantiation is
-// the kernel without groups, unchanged).
-template <typename TI, typename TF, bool kBf16, bool kConstant, bool kGrouped>
+// All C channels per CTA (channel groups: warp_grouped_kernel).
+template <typename TI, typename TF, bool kBf16, bool kConstant>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     warp_windowed_kernel(const TI* __restrict__ img, const TF* __restrict__ flow,
                          const float* __restrict__ t, TI* __restrict__ out, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float2 part[kWarps];
-  const Place c = place<kGrouped>(p);
+  const Place c = place(p);
   const float tn = batch_t(t, p, c.n);
   const int2 o = tile_origin<TF, kBf16>(flow, tn, p, c.n, c.ty, c.tx, part);
   if (c.rows_n <= 0) return;  // a slice of the tile's edge padding: the whole CTA
@@ -493,9 +489,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int step = kGroup * p.subrows;
   float fx[kGroup], fy[kGroup];
   load_flow(fl, sub, c.rows_n, live, p, fx, fy);  // in flight during the copy
-  fill_window<TI, kConstant, kGrouped>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c,
-                                       wd.win, wd.row_off, o.y + c.row0, wd.xa, wd.xb, c.c0,
-                                       c.cn, p);
+  fill_window<TI, kConstant>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c, wd.win,
+                             wd.row_off, o.y + c.row0, wd.xa, wd.xb, p);
   __syncthreads();
   if (sub >= p.subrows) return;  // whole warps: lanes is a multiple of 32
   for (int r = sub; r < c.rows_n; r += step) {
@@ -508,9 +503,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const Sample s = sample_at<kBf16>(fx[g], fy[g], tn, o, p, y, x, y - c.ty * kTh, cols,
                                         c.row0);
       const Taps q = taps_at<kConstant>(s, wd.row_off, wd.xc0, wd.xa, wd.xb, wd.px, p);
-      // whole C: the warp's staging row; grouped: the output pixel's channels
-      TI* dst = kGrouped ? out + ((static_cast<size_t>(c.n) * p.h + y) * p.w + x) * p.c + c.c0
-                         : stage + (g * 32 + lane) * p.c;
+      TI* dst = stage + (g * 32 + lane) * p.c;  // the warp's staging row
       for (int ch = 0; ch < c.cn; ++ch) {
         float v[2][2];
         tap_values<TI, kBf16>(wd.win, q, ch, v);
@@ -519,20 +512,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         st(dst + ch, __fadd_rn(__fmul_rn(s.wy0, in0), __fmul_rn(s.wy1, in1)));
       }
     }
-    if constexpr (!kGrouped) {
-      // each of the warp's rows: one contiguous run of 32 pixels
-      __syncwarp();
-      const int run = min(32, p.w - xw) * p.c;
+    // each of the warp's rows: one contiguous run of 32 pixels
+    __syncwarp();
+    const int run = min(32, p.w - xw) * p.c;
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const int rg = r + g * p.subrows;
-        if (rg >= c.rows_n) break;
-        TI* dst = out + ((static_cast<size_t>(c.n) * p.h + c.y0 + rg) * p.w + xw) * p.c;
-        const TI* from = stage + g * 32 * p.c;
-        for (int k = lane; k < run; k += 32) dst[k] = from[k];
-      }
-      __syncwarp();
+    for (int g = 0; g < kGroup; ++g) {
+      const int rg = r + g * p.subrows;
+      if (rg >= c.rows_n) break;
+      TI* dst = out + ((static_cast<size_t>(c.n) * p.h + c.y0 + rg) * p.w + xw) * p.c;
+      const TI* from = stage + g * 32 * p.c;
+      for (int k = lane; k < run; k += 32) dst[k] = from[k];
     }
+    __syncwarp();
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
       fx[g] = nfx[g];
@@ -552,37 +543,33 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // (the Pallas output's cast), multiplied by the cotangent and summed over
 // channels in f32, in channel order: cg = (d loss/d sx, d loss/d sy), and
 // grad_flow = cg * t. The cotangent is read kCt channels of a row group at
-// a time, all in flight together. kGrouped: the CTA sums its group's
-// channels only and writes the partial sums to cg[group] (cg is then the
-// [groups, n, h, w, 2] scratch; grad_flow is not written), for
-// grad_groups_sum_kernel to add.
+// a time, all in flight together. All C channels per CTA (channel groups:
+// warp_grouped_kernel).
 constexpr int kCt = 4;
 
-template <typename TI, typename TF, bool kBf16, bool kConstant, bool kGrouped>
+template <typename TI, typename TF, bool kBf16, bool kConstant>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     warp_windowed_grad_kernel(const TI* __restrict__ img, const TF* __restrict__ flow,
                               const float* __restrict__ t, const TI* __restrict__ ct,
                               TF* __restrict__ grad_flow, float* __restrict__ cg, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float2 part[kWarps];
-  const Place c = place<kGrouped>(p);
+  const Place c = place(p);
   const float tn = batch_t(t, p, c.n);
   const int2 o = tile_origin<TF, kBf16>(flow, tn, p, c.n, c.ty, c.tx, part);
   if (c.rows_n <= 0) return;
   const int sub = threadIdx.x / p.lanes, cols = threadIdx.x - sub * p.lanes;
   const int x = c.tx * kTw + cols;
   const bool live = sub < p.subrows && x < p.w;
-  // the CTA's channels: all C, or its group's [c0, c0 + cn)
-  const int cn = kGrouped ? c.cn : p.c;
-  const int ch0 = kGrouped ? c.c0 : 0;
+  const int cn = p.c, ch0 = 0;  // the CTA's channels: all C
   const Window wd = window_of(smem, o, cn, static_cast<int>(sizeof(TI)), p);
   const size_t pix0 = (static_cast<size_t>(c.n) * p.h + c.y0) * p.w + x;  // row 0 of the slice
   const TF* fl = flow + pix0 * 2;
   const int step = kGroup * p.subrows;
   float fx[kGroup], fy[kGroup];
   load_flow(fl, sub, c.rows_n, live, p, fx, fy);
-  fill_window<TI, kConstant, kGrouped>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c, wd.win,
-                                       wd.row_off, o.y + c.row0, wd.xa, wd.xb, ch0, cn, p);
+  fill_window<TI, kConstant>(img + static_cast<size_t>(c.n) * p.h * p.w * p.c, wd.win,
+                             wd.row_off, o.y + c.row0, wd.xa, wd.xb, p);
   __syncthreads();
   if (sub >= p.subrows) return;
   for (int r = sub; r < c.rows_n; r += step) {
@@ -637,13 +624,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int g = 0; g < kGroup; ++g) {
       if (!live || r + g * p.subrows >= c.rows_n) continue;
       const size_t pix = pix0 + static_cast<size_t>(r + g * p.subrows) * p.w;
-      if constexpr (kGrouped) {
-        const size_t npix = static_cast<size_t>(p.n) * p.h * p.w;
-        reinterpret_cast<float2*>(cg)[static_cast<size_t>(ch0 / p.cg) * npix + pix] = acc[g];
-      } else {
-        reinterpret_cast<float2*>(cg)[pix] = acc[g];
-        st_pair(grad_flow + pix * 2, __fmul_rn(acc[g].x, tn), __fmul_rn(acc[g].y, tn));
-      }
+      reinterpret_cast<float2*>(cg)[pix] = acc[g];
+      st_pair(grad_flow + pix * 2, __fmul_rn(acc[g].x, tn), __fmul_rn(acc[g].y, tn));
     }
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
@@ -653,18 +635,394 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-// K2 in channel groups, second pass: one thread per pixel adds the groups'
-// partial sums part[groups, n, h, w] in group order, then writes cg and
-// grad_flow = cg * t as the whole-C kernel does.
+// ---- Channel groups (see the note at the top) ------------------------------
+
+// A grouped CTA's pixels: a kBh x kBw block of its tile, one per thread
+// (thread i: block row i / kBw, column i % kBw).
+constexpr int kBh = 16, kBw = 16, kLgBw = 4;
+static_assert(kBh * kBw == kThreads && (1 << kLgBw) == kBw, "one pixel of the block per thread");
+constexpr int kLgMaxNv = 3;  // most groups per ring slot, 8: a 128-byte run per column
+static_assert(kThreads % (1 << kLgMaxNv) == 0, "a thread's group is the same in all its units");
+constexpr int kRingSlots = 2;  // ring slots in shared memory (2 CTAs per SM)
+static_assert(kRingSlots >= 2, "the ring copies one slot while another is computed");
+
+// A grouped CTA's place: tile (n, ty, tx), its block's first pixel (y0,
+// x0), image coordinates, and its chunk: channel groups [v0, v1). grid: x
+// = block of the tile * chunks + chunk, y = ty * tx_n + tx.
+struct GPlace {
+  int n, ty, tx, y0, x0, chunk, v0, v1;
+};
+
+__device__ __forceinline__ GPlace gplace(const Params& p, const GroupPlan& gp) {
+  GPlace c;
+  c.n = blockIdx.z;
+  c.ty = blockIdx.y / p.tx_n;
+  c.tx = blockIdx.y - c.ty * p.tx_n;
+  const int blk = blockIdx.x / gp.chunks;
+  c.chunk = blockIdx.x - blk * gp.chunks;
+  const int by = blk / gp.bx_n;
+  c.y0 = c.ty * kTh + by * kBh;
+  c.x0 = c.tx * kTw + (blk - by * gp.bx_n) * kBw;
+  c.v0 = c.chunk * gp.chunk_vec;
+  c.v1 = min(p.groups, c.v0 + gp.chunk_vec);
+  return c;
+}
+
+// The ring's geometry, the same for all threads of the CTA: the footprint
+// box (content rows ya.., columns xa.., rows x cols); nv = 2^lg groups per
+// slot; a box row's bytes; where K2's cotangent starts in a slot. A slot
+// holds box row r, column c, group j at r * rowpitch + c * nv * 16 +
+// swz(j, c), and the cotangent of pixel i, group j at ct_off + i * nv * 16
+// + swz(j, i): each column's (pixel's) nv groups are one run, the groups
+// swizzled so that lanes reading one group of consecutive columns hit
+// distinct banks.
+struct Ring {
+  int ya, xa, rows, cols, nv, lg, sh, rowpitch, ct_off;
+  __device__ __forceinline__ int key(int c) const { return (c >> sh) & (nv - 1); }
+  __device__ __forceinline__ int swz(int j, int c) const { return (j ^ key(c)) * 16; }
+};
+
+// One pixel of a grouped CTA (the thread's own), from the prologue: where
+// its 2x2 taps' column runs start in a slot (off[2a + b]: row a, column
+// b), the swizzle keys of its two columns, which taps lie inside the
+// content (constant border: bit 2a + b), its weights and K2's masks.
+struct GPix {
+  int off[4], key0, key1;
+  unsigned ok;
+  bool live;
+  float wy0, wy1, wx0, wx1, my, mx;
+};
+
+// K1's table of its block's pixels in shared memory (the items of a slot
+// are spread over the threads by group, not by pixel): tap offsets,
+// weights and key = key0 | key1 << 3 | ok << 6 | live << 10.
+struct GTable {
+  int4 off[kThreads];
+  float4 wt[kThreads];
+  int key[kThreads];
+};
+constexpr int kLive = 1 << 10;
+
+// A 16-byte group's element e as the window dtype holds it (as win_val).
+template <typename TI, bool kBf16>
+__device__ __forceinline__ float vec_val(const uint4& q, int e) {
+  if constexpr (sizeof(TI) == 4) {
+    const float v = __uint_as_float((&q.x)[e]);
+    return kBf16 ? bf16_round(v) : v;
+  } else {
+    const unsigned u = (&q.x)[e >> 1];
+    return __bfloat162float(__ushort_as_bfloat16(
+        static_cast<unsigned short>((e & 1) ? (u >> 16) : (u & 0xffffu))));
+  }
+}
+
+// Sets element e of a 16-byte group to v, rounded to TI (as st).
+template <typename TI>
+__device__ __forceinline__ void vec_set(uint4& q, int e, float v) {
+  if constexpr (sizeof(TI) == 4) {
+    (&q.x)[e] = __float_as_uint(v);
+  } else {
+    const unsigned b = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    unsigned& u = (&q.x)[e >> 1];
+    u = (e & 1) ? ((u & 0xffffu) | (b << 16)) : ((u & 0xffff0000u) | b);
+  }
+}
+
+// Copies the first n (< 16 / sizeof(TI) where ragged) elements of a group
+// element by element into the 16 bytes at dst, zero past them.
+template <typename TI>
+__device__ __forceinline__ void copy_elems(unsigned char* dst, const TI* src, int n) {
+  constexpr int kVe = 16 / static_cast<int>(sizeof(TI));
+  using U = typename std::conditional<sizeof(TI) == 4, unsigned, unsigned short>::type;
+  const U* s = reinterpret_cast<const U*>(src);
+  U* d = reinterpret_cast<U*>(dst);
+#pragma unroll
+  for (int e = 0; e < kVe; ++e) d[e] = e < n ? __ldg(s + e) : U(0);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Waits until at most kN of this thread's commit groups are in flight.
+template <int kN>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kN));
+}
+
+// The prologue, one pixel per thread: its sample and taps (content rows and
+// columns first), the CTA's footprint box (one barrier), the ring's
+// geometry (as many groups per slot as fit, a power of two; one always
+// fits: the plan sizes a slot for the worst box), and the pixel's tap
+// offsets and swizzle keys.
+template <typename TF, bool kBf16, bool kConstant, bool kGrad>
+__device__ __forceinline__ Ring grouped_prologue(const TF* __restrict__ flow, float tn, int2 o,
+                                                 const Params& p, int stage_bytes,
+                                                 const GPlace& c, int4* box, GPix& q) {
+  const int y = c.y0 + (threadIdx.x >> kLgBw), x = c.x0 + (threadIdx.x & (kBw - 1));
+  q.live = y < p.h && x < p.w;
+  int4 b = make_int4(0x7fffffff, -1, 0x7fffffff, -1);  // row min, row max, col min, col max
+  int yc[2] = {0, 0}, xc[2] = {0, 0};
+  if (q.live) {
+    const TF* f = flow + ((static_cast<size_t>(c.n) * p.h + y) * p.w + x) * 2;
+    const Sample s = sample_at<kBf16>(ld(f), ld(f + 1), tn, o, p, y, x, y - c.ty * kTh,
+                                      x - c.tx * kTw, 0);
+    q.wy0 = s.wy0, q.wy1 = s.wy1, q.wx0 = s.wx0, q.wx1 = s.wx1;
+    if constexpr (kGrad) {
+      q.my = (s.sy_raw >= p.ylo && s.sy_raw < p.yhi && s.ry_raw >= 0.f &&
+              s.ry_raw < p.ry_max) ? 1.f : 0.f;
+      q.mx = (s.sx_raw >= p.xlo && s.sx_raw < p.xhi && s.rx_raw >= 0.f &&
+              s.rx_raw < p.rx_max) ? 1.f : 0.f;
+    }
+    // the taps' content rows and columns (window row s.wi holds canvas row
+    // o.y + s.wi), clamped into the content; outside it a constant
+    // border's tap reads zero
+    unsigned okr = 0, okc = 0;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int yr = o.y + s.wi + a - p.pt, xr = o.x - p.pl + s.wj + a;
+      okr |= (yr >= 0 && yr < p.h) << a;
+      okc |= (xr >= 0 && xr < p.w) << a;
+      yc[a] = min(max(yr, 0), p.h - 1);
+      xc[a] = min(max(xr, 0), p.w - 1);
+    }
+    q.ok = kConstant ? ((okr & 1) * okc) | ((okr >> 1) * okc << 2) : 0xfu;
+    b = make_int4(yc[0], yc[1], xc[0], xc[1]);
+  }
+  const unsigned all = 0xffffffffu;
+  b.x = __reduce_min_sync(all, b.x), b.y = __reduce_max_sync(all, b.y);
+  b.z = __reduce_min_sync(all, b.z), b.w = __reduce_max_sync(all, b.w);
+  if ((threadIdx.x & 31) == 0) box[threadIdx.x >> 5] = b;
+  __syncthreads();
+  b = box[0];
+#pragma unroll
+  for (int k = 1; k < kWarps; ++k) {
+    const int4 v = box[k];
+    b.x = min(b.x, v.x), b.y = max(b.y, v.y), b.z = min(b.z, v.z), b.w = max(b.w, v.w);
+  }
+  Ring g;
+  g.ya = b.x, g.xa = b.z, g.rows = b.y - b.x + 1, g.cols = b.w - b.z + 1;
+  const int per_group = (g.rows * g.cols + (kGrad ? kThreads : 0)) * 16;
+  g.lg = 0;
+  while (g.lg < kLgMaxNv && (2 << g.lg) * per_group <= stage_bytes) ++g.lg;
+  g.nv = 1 << g.lg;
+  g.sh = kLgMaxNv - g.lg;  // columns per 128-byte line: 8 / nv
+  g.rowpitch = g.cols * g.nv * 16;
+  g.ct_off = g.rows * g.rowpitch;
+  if (q.live) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        q.off[2 * a + e] = (yc[a] - g.ya) * g.rowpitch + (xc[e] - g.xa) * g.nv * 16;
+    q.key0 = g.key(xc[0] - g.xa);
+    q.key1 = g.key(xc[1] - g.xa);
+  }
+  return g;
+}
+
+// Starts the copies of groups [vb, vb + nvl) (nvl <= nv) into a ring slot
+// and commits them: the footprint box, units (row, column, group) with
+// the group fastest, so that a column's groups are one contiguous run of
+// img; K2 also the block's cotangent, units (pixel, group). A thread's
+// group is the same in every unit (kThreads is a multiple of nv): j.
+template <typename TI, bool kGrad>
+__device__ __forceinline__ void start_copies(const TI* __restrict__ img_n,
+                                             const TI* __restrict__ ct, unsigned char* slot,
+                                             const Ring& g, int vb, int nvl, const GPlace& c,
+                                             const Params& p) {
+  constexpr int kVe = 16 / static_cast<int>(sizeof(TI));
+  const int j = threadIdx.x & (g.nv - 1);
+  if (j < nvl) {
+    const int n_el = min(kVe, p.c - (vb + j) * kVe);  // element copies: a ragged last group
+    // this thread's first (row, column) and its step of kThreads / nv units
+    const int rc = threadIdx.x >> g.lg, drc = kThreads >> g.lg;
+    int r = rc / g.cols, cc = rc - r * g.cols;
+    const int dr = drc / g.cols, dc = drc - dr * g.cols;
+    while (r < g.rows) {
+      const TI* src =
+          img_n + (static_cast<size_t>(g.ya + r) * p.w + g.xa + cc) * p.c + (vb + j) * kVe;
+      unsigned char* dst = slot + r * g.rowpitch + cc * g.nv * 16 + g.swz(j, cc);
+      if (p.vec16)
+        cp_async16(dst, src);
+      else
+        copy_elems<TI>(dst, src, n_el);
+      cc += dc, r += dr;
+      if (cc >= g.cols) cc -= g.cols, ++r;
+    }
+    if constexpr (kGrad) {
+      for (int i = threadIdx.x >> g.lg; i < kThreads; i += drc) {
+        const int y = c.y0 + (i >> kLgBw), x = c.x0 + (i & (kBw - 1));
+        if (y >= p.h || x >= p.w) continue;
+        const TI* src =
+            ct + ((static_cast<size_t>(c.n) * p.h + y) * p.w + x) * p.c + (vb + j) * kVe;
+        unsigned char* dst = slot + g.ct_off + i * g.nv * 16 + g.swz(j, i);
+        if (p.vec16)
+          cp_async16(dst, src);
+        else
+          copy_elems<TI>(dst, src, n_el);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// K1 and K2 in channel groups (kGrad: K2). K1 writes out: a slot's items
+// (pixel, group) go to the threads group fastest, so that a warp writes
+// each pixel's groups as one run (its pixels' taps and weights from the
+// table). K2 keeps a pixel per thread and sums its channels in channel
+// order, across the slots, then writes cg and grad_flow, or with several
+// chunks per tile its chunk's partial sums to cg = the scratch [chunks, n,
+// h, w, 2] for grad_chunks_sum_kernel. The per-channel arithmetic is
+// warp_windowed_kernel's and warp_windowed_grad_kernel's.
+template <typename TI, typename TF, bool kBf16, bool kConstant, bool kGrad>
+__global__ void __launch_bounds__(kThreads, 2)
+    warp_grouped_kernel(const TI* __restrict__ img, const TF* __restrict__ flow,
+                        const float* __restrict__ t, const TI* __restrict__ ct,
+                        TI* __restrict__ out, TF* __restrict__ grad_flow, float* __restrict__ cg,
+                        Params p, GroupPlan gp) {
+  constexpr int kVe = 16 / static_cast<int>(sizeof(TI));
+  constexpr int kTable = kGrad ? 0 : static_cast<int>(sizeof(GTable));
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 part[kWarps];
+  __shared__ int4 box[kWarps];
+  const GPlace c = gplace(p, gp);
+  if (c.y0 >= p.h || c.x0 >= p.w) return;  // a block past a short tile: the whole CTA
+  const float tn = batch_t(t, p, c.n);
+  const int2 o = tile_origin<TF, kBf16>(flow, tn, p, c.n, c.ty, c.tx, part);
+  GPix q;
+  const Ring g = grouped_prologue<TF, kBf16, kConstant, kGrad>(flow, tn, o, p, gp.stage_bytes,
+                                                                 c, box, q);
+  GTable* table = reinterpret_cast<GTable*>(smem);
+  if constexpr (!kGrad) {
+    const int i = threadIdx.x;
+    table->off[i] = make_int4(q.off[0], q.off[1], q.off[2], q.off[3]);
+    table->wt[i] = make_float4(q.wy0, q.wy1, q.wx0, q.wx1);
+    table->key[i] = q.live ? q.key0 | q.key1 << 3 | q.ok << 6 | kLive : 0;
+  }
+  unsigned char* ring = smem + kTable;
+  const TI* img_n = img + static_cast<size_t>(c.n) * p.h * p.w * p.c;
+  float2 acc = make_float2(0.f, 0.f);
+  const int slots = (c.v1 - c.v0 + g.nv - 1) / g.nv;  // ring slots this CTA fills
+  auto fill = [&](int s) {
+    if (s < slots) {
+      const int vb = c.v0 + s * g.nv;
+      start_copies<TI, kGrad>(img_n, ct, ring + (s % kRingSlots) * gp.stage_bytes, g, vb,
+                              min(g.nv, c.v1 - vb), c, p);
+    } else {
+      cp_async_commit();  // an empty group keeps the wait counts uniform
+    }
+  };
+  for (int s = 0; s + 1 < kRingSlots; ++s) fill(s);
+  for (int s = 0; s < slots; ++s) {
+    cp_async_wait<kRingSlots - 2>();  // slot s's copies (this thread's) have landed
+    __syncthreads();                  // everyone's have; everyone is done with slot s - 1
+    fill(s + kRingSlots - 1);         // into slot s - 1's place
+    const unsigned char* slot = ring + (s % kRingSlots) * gp.stage_bytes;
+    const int vb = c.v0 + s * g.nv, nvl = min(g.nv, c.v1 - vb);
+    if constexpr (!kGrad) {
+      const int j = threadIdx.x & (g.nv - 1);
+      if (j >= nvl) continue;
+      const int ch0 = (vb + j) * kVe, n_ch = min(kVe, p.c - ch0);
+      for (int i = threadIdx.x >> g.lg; i < kThreads; i += kThreads >> g.lg) {
+        const int key = table->key[i];
+        if (!(key & kLive)) continue;
+        const int4 off = table->off[i];
+        const float4 wt = table->wt[i];  // wy0, wy1, wx0, wx1
+        const int s0 = (j ^ (key & 7)) * 16, s1 = (j ^ ((key >> 3) & 7)) * 16;
+        uint4 tap[4] = {*reinterpret_cast<const uint4*>(slot + off.x + s0),
+                        *reinterpret_cast<const uint4*>(slot + off.y + s1),
+                        *reinterpret_cast<const uint4*>(slot + off.z + s0),
+                        *reinterpret_cast<const uint4*>(slot + off.w + s1)};
+        if constexpr (kConstant) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (!((key >> (6 + u)) & 1)) tap[u] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        uint4 res = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int e = 0; e < kVe; ++e) {
+          const float v00 = vec_val<TI, kBf16>(tap[0], e), v01 = vec_val<TI, kBf16>(tap[1], e);
+          const float v10 = vec_val<TI, kBf16>(tap[2], e), v11 = vec_val<TI, kBf16>(tap[3], e);
+          const float in0 = row_sum<kBf16>(wt.z, v00, wt.w, v01);
+          const float in1 = row_sum<kBf16>(wt.z, v10, wt.w, v11);
+          vec_set<TI>(res, e, __fadd_rn(__fmul_rn(wt.x, in0), __fmul_rn(wt.y, in1)));
+        }
+        TI* dst = out + ((static_cast<size_t>(c.n) * p.h + c.y0 + (i >> kLgBw)) * p.w + c.x0 +
+                         (i & (kBw - 1))) * p.c + ch0;
+        if (p.vec16) {
+          *reinterpret_cast<uint4*>(dst) = res;
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVe; ++e)
+            if (e < n_ch) st(dst + e, vec_val<TI, false>(res, e));
+        }
+      }
+    } else {
+      if (!q.live) continue;
+      const int i = threadIdx.x;
+      for (int j = 0; j < nvl; ++j) {
+        const int ch0 = (vb + j) * kVe, n_ch = min(kVe, p.c - ch0);
+        const int s0 = (j ^ q.key0) * 16, s1 = (j ^ q.key1) * 16;
+        uint4 tap[4] = {*reinterpret_cast<const uint4*>(slot + q.off[0] + s0),
+                        *reinterpret_cast<const uint4*>(slot + q.off[1] + s1),
+                        *reinterpret_cast<const uint4*>(slot + q.off[2] + s0),
+                        *reinterpret_cast<const uint4*>(slot + q.off[3] + s1)};
+        if constexpr (kConstant) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (!((q.ok >> u) & 1)) tap[u] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        const uint4 cv =
+            *reinterpret_cast<const uint4*>(slot + g.ct_off + i * g.nv * 16 + g.swz(j, i));
+#pragma unroll
+        for (int e = 0; e < kVe; ++e) {
+          if (e >= n_ch) break;
+          const float v00 = vec_val<TI, kBf16>(tap[0], e), v01 = vec_val<TI, kBf16>(tap[1], e);
+          const float v10 = vec_val<TI, kBf16>(tap[2], e), v11 = vec_val<TI, kBf16>(tap[3], e);
+          // d out/d sy: vertical dhat over the interp rows
+          const float in0 = row_sum<kBf16>(q.wx0, v00, q.wx1, v01);
+          const float in1 = row_sum<kBf16>(q.wx0, v10, q.wx1, v11);
+          float gy = __fadd_rn(__fmul_rn(-q.my, in0), __fmul_rn(q.my, in1));
+          // d out/d sx: horizontal dhat (exact in bf16), vertical hat
+          const float dx0 = row_sum<kBf16>(-q.mx, v00, q.mx, v01);
+          const float dx1 = row_sum<kBf16>(-q.mx, v10, q.mx, v11);
+          float gx = __fadd_rn(__fmul_rn(q.wy0, dx0), __fmul_rn(q.wy1, dx1));
+          gy = as_stored<TI>(gy);
+          gx = as_stored<TI>(gx);
+          const float cvf = vec_val<TI, false>(cv, e);
+          acc.y = __fadd_rn(acc.y, __fmul_rn(cvf, gy));
+          acc.x = __fadd_rn(acc.x, __fmul_rn(cvf, gx));
+        }
+      }
+    }
+  }
+  if constexpr (kGrad) {
+    if (!q.live) return;
+    const size_t pix = (static_cast<size_t>(c.n) * p.h + c.y0 + (threadIdx.x >> kLgBw)) * p.w +
+                       c.x0 + (threadIdx.x & (kBw - 1));
+    if (gp.chunks == 1) {
+      reinterpret_cast<float2*>(cg)[pix] = acc;
+      st_pair(grad_flow + pix * 2, __fmul_rn(acc.x, tn), __fmul_rn(acc.y, tn));
+    } else {
+      const size_t npix = static_cast<size_t>(p.n) * p.h * p.w;
+      reinterpret_cast<float2*>(cg)[static_cast<size_t>(c.chunk) * npix + pix] = acc;
+    }
+  }
+}
+
+// Grouped K2 with several chunks per tile, second pass: one thread per
+// pixel adds the chunks' partial sums part[chunks, n, h, w] in chunk order,
+// then writes cg and grad_flow = cg * t.
 template <typename TF>
 __global__ void __launch_bounds__(kThreads)
-    grad_groups_sum_kernel(const float2* __restrict__ part, const float* __restrict__ t,
-                           TF* __restrict__ grad_flow, float2* __restrict__ cg, Params p) {
+    grad_chunks_sum_kernel(const float2* __restrict__ part, const float* __restrict__ t,
+                           TF* __restrict__ grad_flow, float2* __restrict__ cg, Params p,
+                           int chunks) {
   const size_t hw = static_cast<size_t>(p.h) * p.w, npix = hw * p.n;
   const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= npix) return;
   float2 s = part[i];
-  for (int g = 1; g < p.groups; ++g) {
+  for (int g = 1; g < chunks; ++g) {
     const float2 v = part[g * npix + i];
     s.x = __fadd_rn(s.x, v.x);
     s.y = __fadd_rn(s.y, v.y);
@@ -692,6 +1050,52 @@ __global__ void __launch_bounds__(kThreads)
 
 size_t round16(size_t b) { return (b + 15) / 16 * 16; }
 
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// The channel-group plan (warp_grouped_kernel) of a launch whose window of
+// all C channels does not fit (see plan): kBh x kBw pixel blocks of each
+// tile, a ring of kRingSlots slots (two CTAs per SM, else one) each sized
+// for one group of the worst footprint box (the block plus nsh - 1 halo
+// rows and columns; K2 also the block's cotangent), K1's pixel table, and
+// the fewest chunks of groups per tile that give every SM a CTA (K2 with
+// more than one chunk adds a second pass).
+cudaError_t plan_grouped(Params& p, GroupPlan& gp, int nsh_y, int nsh_x, size_t img_bytes,
+                         bool grad, int sms, size_t* smem) {
+  p.groups = static_cast<int>((p.c * img_bytes + 15) / 16);
+  p.cg = static_cast<int>(16 / img_bytes);
+  const int th_full = min(kTh, p.h), wt_full = min(kTw, p.w);
+  const int th_last = p.h - (p.ty_n - 1) * kTh, wt_last = p.w - (p.tx_n - 1) * kTw;
+  const int by_n = (th_full + kBh - 1) / kBh;
+  gp.bx_n = (wt_full + kBw - 1) / kBw;
+  // blocks with pixels, over all tiles (the last tile row and column are short)
+  const long long rows_full = by_n, rows_last = cdiv(th_last, kBh);
+  const long long cols_full = gp.bx_n, cols_last = cdiv(wt_last, kBw);
+  const long long live = p.n * ((p.ty_n - 1) * rows_full + rows_last) *
+                         ((p.tx_n - 1) * cols_full + cols_last);
+  const size_t need = static_cast<size_t>(std::min(kBh + nsh_y - 1, p.h)) *
+                          std::min(kBw + nsh_x - 1, p.w) * 16 +
+                      (grad ? kThreads * 16 : 0);
+  const size_t table = grad ? 0 : sizeof(GTable);
+  for (const size_t budget : {kSmemTwo, kSmemMax}) {
+    const size_t slot = (budget - table) / kRingSlots / 16 * 16;
+    if (slot < need) continue;
+    p.grouped = 1;
+    p.split = by_n * gp.bx_n;
+    p.rows = kBh;
+    gp.chunk_vec =
+        static_cast<int>(cdiv(p.groups, std::min<long long>(cdiv(sms, live), p.groups)));
+    gp.chunks = static_cast<int>(cdiv(p.groups, gp.chunk_vec));
+    gp.stage_bytes = static_cast<int>(slot);
+    p.vec16 = (p.c * img_bytes) % 16 == 0;
+    if (static_cast<long long>(p.ty_n) * p.tx_n > 65535 ||
+        static_cast<long long>(p.split) * gp.chunks > 0x7fffffffLL)
+      return cudaErrorInvalidValue;
+    *smem = table + kRingSlots * slot;
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidValue;
+}
+
 // Tiles, row slices and shared memory of a launch. split: row slices per
 // tile (1, 2, 4 or 8), the fewest that give two CTAs per SM (so a small
 // image still spreads over the card) and a window that leaves room for two
@@ -699,8 +1103,8 @@ size_t round16(size_t b) { return (b + 15) / 16 * 16; }
 // buffers. A window of all C channels that fits neither at 4 rows per CTA
 // takes channel groups (K1 and K2). Returns the dynamic shared memory in
 // *smem, or cudaErrorInvalidValue for a launch the kernels do not take.
-cudaError_t plan(Params& p, int nsh_y, int nsh_x, size_t img_bytes, bool staging, int* dev,
-                 size_t* smem) {
+cudaError_t plan(Params& p, GroupPlan& gp, int nsh_y, int nsh_x, size_t img_bytes, bool staging,
+                 int* dev, size_t* smem) {
   if (p.n <= 0 || p.h <= 0 || p.w <= 0 || p.c <= 0 || nsh_y < 2 || nsh_x < 2)
     return cudaErrorInvalidValue;
   p.ty_n = (p.h + kTh - 1) / kTh;
@@ -717,6 +1121,7 @@ cudaError_t plan(Params& p, int nsh_y, int nsh_x, size_t img_bytes, bool staging
   p.subrows = kThreads / p.lanes;
   p.ww = kTw + nsh_x - 1;
   p.grouped = 0, p.groups = 1, p.cg = p.c, p.vec16 = 0;
+  gp = GroupPlan{0, 1, 1, 0};
   p.pitch = static_cast<int>(round16(p.ww * p.c * img_bytes) + 32);  // + alignment slack
   const size_t stage = staging ? static_cast<size_t>(kWarps) * kGroup * 32 * p.c * img_bytes : 0;
   for (const size_t budget : {kSmemTwo, kSmemMax}) {
@@ -736,47 +1141,7 @@ cudaError_t plan(Params& p, int nsh_y, int nsh_x, size_t img_bytes, bool staging
       }
     }
   }
-  // Channel groups: a window copies at most min(ww, w) columns of cg
-  // channels, packed, with no staging. cg is a multiple of `unit` channels,
-  // so that every group starts on a 16-byte boundary where C channels are
-  // whole 16-byte chunks. Per budget, the fewest row slices whose window
-  // holds a group and whose CTAs (tiles x slices x groups) fill two per SM,
-  // else the most slices that hold a group; the groups are then evened out.
-  const int cols = min(p.ww, p.w);
-  const int unit = (p.c * img_bytes) % 16 == 0 ? static_cast<int>(16 / img_bytes) : 1;
-  for (const size_t budget : {kSmemTwo, kSmemMax}) {
-    int best_s = 0, best_cg = 0;
-    for (int s = 1; s <= kMaxSplit; s *= 2) {
-      const int wh = kTh / s + nsh_y - 1;
-      const size_t win_offset = round16(sizeof(int) * wh);
-      if (win_offset >= budget) continue;
-      // the largest multiple of unit channels whose rows fit
-      const size_t row_max = (budget - win_offset) / wh / 16 * 16;
-      const int cg =
-          static_cast<int>(std::min<size_t>(row_max / (cols * img_bytes), p.c)) / unit * unit;
-      if (cg < 1) continue;
-      best_s = s, best_cg = cg;
-      if (tiles * s * ((p.c + cg - 1) / cg) >= 2LL * sms) break;
-    }
-    if (best_s == 0) continue;
-    const int fewest = (p.c + best_cg - 1) / best_cg;  // groups of at most best_cg
-    p.cg = ((p.c + fewest - 1) / fewest + unit - 1) / unit * unit;
-    p.groups = (p.c + p.cg - 1) / p.cg;
-    p.grouped = 1;
-    p.vec16 = unit > 1;
-    p.split = best_s;
-    p.rows = kTh / best_s;
-    p.wh = p.rows + nsh_y - 1;
-    p.pitch = static_cast<int>(round16(static_cast<size_t>(cols) * p.cg * img_bytes));
-    p.win_offset = static_cast<int>(round16(sizeof(int) * p.wh));
-    p.stage_offset = 0;
-    if (static_cast<long long>(p.ty_n) * best_s > 65535 ||
-        static_cast<long long>(p.tx_n) * p.groups > 0x7fffffffLL)
-      return cudaErrorInvalidValue;
-    *smem = p.win_offset + static_cast<size_t>(p.wh) * p.pitch;
-    return cudaSuccess;
-  }
-  return cudaErrorInvalidValue;
+  return plan_grouped(p, gp, nsh_y, nsh_x, img_bytes, !staging, sms, smem);
 }
 
 // Lets `kernel` take up to kSmemMax of dynamic shared memory on device dev,
@@ -792,59 +1157,65 @@ cudaError_t set_smem(Kernel* kernel, int dev, bool* done) {
   return err;
 }
 
+// Launches `kernel` with up to kSmemMax of dynamic shared memory on device
+// dev (done: the kernel's own flags).
+template <typename Kernel, typename... Args>
+cudaError_t launch_with_smem(Kernel* kernel, bool* done, dim3 grid, size_t smem, int dev,
+                             cudaStream_t stream, Args... args) {
+  const cudaError_t err = set_smem(kernel, dev, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 template <typename TI, typename TF>
 struct Interp {
   template <bool kBf16, bool kConstant>
   static cudaError_t run(dim3 grid, size_t smem, int dev, cudaStream_t stream, const Params& p,
-                         const void* img, const void* flow, const float* t, void* out) {
-    return p.grouped ? go<kBf16, kConstant, true>(grid, smem, dev, stream, p, img, flow, t, out)
-                     : go<kBf16, kConstant, false>(grid, smem, dev, stream, p, img, flow, t, out);
-  }
-  template <bool kBf16, bool kConstant, bool kGrouped>
-  static cudaError_t go(dim3 grid, size_t smem, int dev, cudaStream_t stream, const Params& p,
-                        const void* img, const void* flow, const float* t, void* out) {
+                         const GroupPlan& gp, const void* img, const void* flow, const float* t,
+                         void* out) {
+    const TI* im = static_cast<const TI*>(img);
+    const TF* fl = static_cast<const TF*>(flow);
+    if (p.grouped) {
+      static bool done[kMaxDevices] = {};
+      return launch_with_smem(warp_grouped_kernel<TI, TF, kBf16, kConstant, false>, done, grid,
+                              smem, dev, stream, im, fl, t, static_cast<const TI*>(nullptr),
+                              static_cast<TI*>(out), static_cast<TF*>(nullptr),
+                              static_cast<float*>(nullptr), p, gp);
+    }
     static bool done[kMaxDevices] = {};
-    auto kernel = warp_windowed_kernel<TI, TF, kBf16, kConstant, kGrouped>;
-    const cudaError_t err = set_smem(kernel, dev, done);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(static_cast<const TI*>(img),
-                                             static_cast<const TF*>(flow), t,
-                                             static_cast<TI*>(out), p);
-    return cudaGetLastError();
+    return launch_with_smem(warp_windowed_kernel<TI, TF, kBf16, kConstant>, done, grid, smem,
+                            dev, stream, im, fl, t, static_cast<TI*>(out), p);
   }
 };
 
 template <typename TI, typename TF>
 struct Grad {
-  // part: the groups' scratch [groups, n, h, w, 2] f32 of a grouped launch
+  // part: the chunks' scratch [chunks, n, h, w, 2] f32 of a grouped launch
+  // with several chunks per tile
   template <bool kBf16, bool kConstant>
   static cudaError_t run(dim3 grid, size_t smem, int dev, cudaStream_t stream, const Params& p,
-                         const void* img, const void* flow, const float* t, const void* ct,
-                         void* grad_flow, float* cg, float* part) {
-    if (!p.grouped)
-      return go<kBf16, kConstant, false>(grid, smem, dev, stream, p, img, flow, t, ct, grad_flow,
-                                         cg);
-    cudaError_t err =
-        go<kBf16, kConstant, true>(grid, smem, dev, stream, p, img, flow, t, ct, grad_flow, part);
-    if (err != cudaSuccess) return err;
-    const size_t npix = static_cast<size_t>(p.n) * p.h * p.w;
-    grad_groups_sum_kernel<TF><<<static_cast<unsigned>((npix + kThreads - 1) / kThreads),
-                                 kThreads, 0, stream>>>(
-        reinterpret_cast<const float2*>(part), t, static_cast<TF*>(grad_flow),
-        reinterpret_cast<float2*>(cg), p);
-    return cudaGetLastError();
-  }
-  template <bool kBf16, bool kConstant, bool kGrouped>
-  static cudaError_t go(dim3 grid, size_t smem, int dev, cudaStream_t stream, const Params& p,
-                        const void* img, const void* flow, const float* t, const void* ct,
-                        void* grad_flow, float* cg) {
+                         const GroupPlan& gp, const void* img, const void* flow, const float* t,
+                         const void* ct, void* grad_flow, float* cg, float* part) {
+    const TI* im = static_cast<const TI*>(img);
+    const TF* fl = static_cast<const TF*>(flow);
+    const TI* c = static_cast<const TI*>(ct);
+    TF* gf = static_cast<TF*>(grad_flow);
+    if (!p.grouped) {
+      static bool done[kMaxDevices] = {};
+      return launch_with_smem(warp_windowed_grad_kernel<TI, TF, kBf16, kConstant>, done, grid,
+                              smem, dev, stream, im, fl, t, c, gf, cg, p);
+    }
     static bool done[kMaxDevices] = {};
-    auto kernel = warp_windowed_grad_kernel<TI, TF, kBf16, kConstant, kGrouped>;
-    const cudaError_t err = set_smem(kernel, dev, done);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const TI*>(img), static_cast<const TF*>(flow), t,
-        static_cast<const TI*>(ct), static_cast<TF*>(grad_flow), cg, p);
+    const cudaError_t err = launch_with_smem(
+        warp_grouped_kernel<TI, TF, kBf16, kConstant, true>, done, grid, smem, dev, stream, im,
+        fl, t, c, static_cast<TI*>(nullptr), gf, gp.chunks > 1 ? part : cg, p, gp);
+    if (err != cudaSuccess || gp.chunks == 1) return err;
+    const size_t npix = static_cast<size_t>(p.n) * p.h * p.w;
+    grad_chunks_sum_kernel<TF><<<static_cast<unsigned>((npix + kThreads - 1) / kThreads),
+                                 kThreads, 0, stream>>>(
+        reinterpret_cast<const float2*>(part), t, gf, reinterpret_cast<float2*>(cg), p,
+        gp.chunks);
     return cudaGetLastError();
   }
 };
@@ -870,6 +1241,14 @@ cudaError_t launch_typed(int img_bf16, int flow_bf16, Args... args) {
                      : launch_modes<Kernel<bf16, float>>(args...);
   return flow_bf16 ? launch_modes<Kernel<float, bf16>>(args...)
                    : launch_modes<Kernel<float, float>>(args...);
+}
+
+// The grid of a planned launch: whole C, x = tiles across and y = tile
+// rows x row slices; channel groups, x = pixel blocks x chunks and y = the
+// tiles of an image.
+dim3 grid_of(const Params& p, const GroupPlan& gp) {
+  return p.grouped ? dim3(p.split * gp.chunks, p.ty_n * p.tx_n, p.n)
+                   : dim3(p.tx_n, p.ty_n * p.split, p.n);
 }
 
 Params make_params(int n, int h, int w, int c, float t_scalar, int t_stride, int ry, int rx,
@@ -899,24 +1278,25 @@ extern "C" int warp_windowed_launch(
     float xhi, float ry_max, float rx_max, void* stream) {
   Params p = make_params(n, h, w, c, t_scalar, t_stride, ry, rx, pt, pl, ylo, yhi, xlo, xhi,
                          ry_max, rx_max);
+  GroupPlan gp;
   size_t smem = 0;
   int dev = 0;
-  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, true, &dev, &smem);
+  cudaError_t err = plan(p, gp, nsh_y, nsh_x, img_bf16 ? 2 : 4, true, &dev, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte group copies need a 16-byte aligned image (a view may not be)
-  if (reinterpret_cast<uintptr_t>(img) % 16) p.vec16 = 0;
-  const dim3 grid(p.tx_n * p.groups, p.ty_n * p.split, p.n);
+  // 16-byte group copies and stores need 16-byte aligned tensors (a view
+  // may not be)
+  if ((reinterpret_cast<uintptr_t>(img) | reinterpret_cast<uintptr_t>(out)) % 16) p.vec16 = 0;
   return static_cast<int>(launch_typed<Interp>(
-      img_bf16, flow_bf16, grid, smem, dev, bf16_window, constant,
-      static_cast<cudaStream_t>(stream), p, img, flow, static_cast<const float*>(t), out));
+      img_bf16, flow_bf16, grid_of(p, gp), smem, dev, bf16_window, constant,
+      static_cast<cudaStream_t>(stream), p, gp, img, flow, static_cast<const float*>(t), out));
 }
 
 // K2. The arguments of warp_windowed_launch, plus ct: [n, h, w, c] in img's
 // type (the cotangent of out); grad_flow: [n, h, w, 2] in flow's type; cg:
 // [n, h, w, 2] f32, (d loss/d sx, d loss/d sy); both written as pairs, so
-// aligned to a pair; part: f32 scratch of [groups, n, h, w, 2] for a launch
-// whose plan takes channel groups (warp_windowed_plan), else unused (may be
-// null). Returns the cudaError_t.
+// aligned to a pair; part: f32 scratch of [chunks, n, h, w, 2] for a launch
+// whose plan takes channel groups in several chunks per tile
+// (warp_windowed_plan), else unused (may be null). Returns the cudaError_t.
 extern "C" int warp_windowed_grad_launch(
     const void* img, const void* flow, const void* t, float t_scalar, int t_stride,
     const void* ct, void* grad_flow, void* cg, void* part, int n, int h, int w, int c,
@@ -928,17 +1308,18 @@ extern "C" int warp_windowed_grad_launch(
     return static_cast<int>(cudaErrorMisalignedAddress);
   Params p = make_params(n, h, w, c, t_scalar, t_stride, ry, rx, pt, pl, ylo, yhi, xlo, xhi,
                          ry_max, rx_max);
+  GroupPlan gp;
   size_t smem = 0;
   int dev = 0;
-  cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, false, &dev, &smem);
+  cudaError_t err = plan(p, gp, nsh_y, nsh_x, img_bf16 ? 2 : 4, false, &dev, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (p.grouped && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  // 16-byte group copies need a 16-byte aligned image (a view may not be)
-  if (reinterpret_cast<uintptr_t>(img) % 16) p.vec16 = 0;
-  const dim3 grid(p.tx_n * p.groups, p.ty_n * p.split, p.n);
+  if (p.grouped && gp.chunks > 1 && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte group copies need 16-byte aligned tensors (a view may not be)
+  if ((reinterpret_cast<uintptr_t>(img) | reinterpret_cast<uintptr_t>(ct)) % 16) p.vec16 = 0;
   return static_cast<int>(launch_typed<Grad>(
-      img_bf16, flow_bf16, grid, smem, dev, bf16_window, constant,
-      static_cast<cudaStream_t>(stream), p, img, flow, static_cast<const float*>(t), ct,
+      img_bf16, flow_bf16, grid_of(p, gp), smem, dev, bf16_window, constant,
+      static_cast<cudaStream_t>(stream), p, gp, img, flow, static_cast<const float*>(t), ct,
       grad_flow, static_cast<float*>(cg), static_cast<float*>(part)));
 }
 
@@ -976,20 +1357,27 @@ extern "C" int warp_windowed_origins_launch(
 }
 
 // The plan of a K1 (grad = 0) or K2 (grad = 1) launch on the current
-// device, for the wrappers and the checks: out[0..6] = split (row slices
-// per tile), rows per CTA, grouped (0: the whole-C layout), channel groups,
-// channels per group, dynamic shared memory bytes, CTAs. Returns the
-// cudaError_t of the plan (cudaErrorInvalidValue: the launch would be
-// refused).
+// device, for the wrappers and the checks: out[0..9] = split (row slices,
+// or with channel groups pixel blocks, per tile), rows per CTA (grouped: a
+// block's rows), grouped (0: the whole-C layout), channel groups
+// per pixel, channels per group, dynamic shared memory bytes, CTAs,
+// chunks of groups per tile, pixels per CTA, ring slots. Whole C: one
+// group of c channels, one chunk, one slot. Returns the cudaError_t of
+// the plan (cudaErrorInvalidValue: the launch would be refused).
 extern "C" int warp_windowed_plan(int n, int h, int w, int c, int img_bf16, int nsh_y, int nsh_x,
                                   int grad, long long* out) {
   Params p = make_params(n, h, w, c, 0.f, 0, 0, 0, 0, 0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
+  GroupPlan gp;
   size_t smem = 0;
   int dev = 0;
-  const cudaError_t err = plan(p, nsh_y, nsh_x, img_bf16 ? 2 : 4, !grad, &dev, &smem);
+  const cudaError_t err = plan(p, gp, nsh_y, nsh_x, img_bf16 ? 2 : 4, !grad, &dev, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long v[7] = {p.split, p.rows, p.grouped, p.groups, p.cg, static_cast<long long>(smem),
-                          static_cast<long long>(p.tx_n) * p.groups * p.ty_n * p.split * p.n};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const dim3 grid = grid_of(p, gp);
+  const long long v[10] = {p.split, p.rows, p.grouped, p.groups, p.cg,
+                           static_cast<long long>(smem),
+                           static_cast<long long>(grid.x) * grid.y * grid.z, gp.chunks,
+                           p.grouped ? kThreads : static_cast<long long>(p.rows) * min(w, kTw),
+                           p.grouped ? kRingSlots : 1};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }

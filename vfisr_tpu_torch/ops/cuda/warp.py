@@ -31,12 +31,15 @@ H100 is bytes: see the note in the CUDA source.
 Channels: K1 and K2 take any C, as the Pallas wrapper does by chunking. A
 window of all C channels that does not fit in shared memory (past 9
 channels for an f32 image at r = 8 in K1, 10 in K2, such as SAFA's
-176-channel feature warps) is split into channel groups, one more grid
-axis. K1's grouped launch has the same bits as the whole-C one. K2's sums
-over channels: each group's CTAs write the group's partial sums to an f32
-scratch that ``launch_grad`` allocates, and a second kernel adds the groups
-in order (deterministic, no atomics). ``plan`` says how the kernels take a
-launch.
+176-channel feature warps) takes the channel-group kernel: each CTA owns a
+16x16 block of a tile's pixels and walks a chunk of 16-byte channel groups
+through a ring in shared memory, copying only the rows and columns its
+taps reach. K1's grouped launch has the same bits as the whole-C one. K2
+sums each pixel's channels in channel order in one thread and writes its
+outputs in one launch; only a plan with several chunks per tile has each
+chunk's partial sums go to an f32 scratch that ``launch_grad`` allocates,
+added in chunk order by a second kernel (deterministic, no atomics).
+``plan`` says how the kernels take a launch.
 
 ``warp_windowed_plain`` (with its ``weight_mode``) and
 ``warp_windowed_grad_plain`` are the same functions in plain PyTorch. The
@@ -236,7 +239,8 @@ def _launch_args(img, flow, r, border, compute_dtype) -> tuple:
                        *_radii(r), compute_dtype == torch.bfloat16, border)
 
 
-PLAN_FIELDS = ("split", "rows", "grouped", "groups", "cg", "smem", "ctas")
+PLAN_FIELDS = ("split", "rows", "grouped", "groups", "cg", "smem", "ctas", "chunks", "pixels",
+               "stages")
 
 
 @functools.lru_cache(maxsize=None)
@@ -250,11 +254,17 @@ def _plan(device_index: int, n, h, w, c, img_bf16: bool, nsh_y, nsh_x, grad: boo
 
 def plan(img: torch.Tensor, r, compute_dtype: torch.dtype, grad: bool = False):
     """How the kernel takes img [N,H,W,C] on its CUDA card: a dict of
-    PLAN_FIELDS (row slices per tile, rows per CTA, whether the channels
-    are split into groups, how many groups of how many channels, shared
-    memory bytes per CTA, CTAs), or None where the kernel refuses the
-    launch. K1 (grad=False) and K2 (grad=True) split a window of all C
-    channels that does not fit in shared memory into channel groups."""
+    PLAN_FIELDS, or None where the kernel refuses the launch. K1
+    (grad=False) and K2 (grad=True) split a window of all C channels that
+    does not fit in shared memory into channel groups (``grouped`` 1).
+
+    split: CTAs per tile (row slices; grouped: pixel blocks); rows: output
+    rows per CTA (grouped: a block's rows); groups, cg: channel
+    groups per pixel and channels per group (whole C: 1 and C; grouped:
+    16-byte groups); smem: shared memory bytes per CTA; ctas: CTAs of the
+    launch; chunks: runs of groups per tile, each its own CTA (K2 with
+    more than one launches a second pass); pixels: output pixels per CTA;
+    stages: ring slots (whole C: 1)."""
     ry, rx = _radii(r)
     bf16 = compute_dtype == torch.bfloat16
     _, _, nsh_y, nsh_x, _ = _geometry(img.shape[1], img.shape[2], ry, rx, bf16, "replicate")
@@ -336,14 +346,15 @@ def launch_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor,
     them): t as for ``launch``, ct contiguous like img, grad_flow like flow
     and cg [N,H,W,2] f32, both fresh allocations (written as aligned
     pairs). The kernel recomputes the forward's window origins. A launch in
-    channel groups also takes an f32 scratch [groups, N, H, W, 2] for the
-    groups' partial sums, allocated here."""
+    channel groups whose plan takes several chunks per tile also takes an
+    f32 scratch [chunks, N, H, W, 2] for the chunks' partial sums,
+    allocated here."""
     global grad_launches
     lib = build()
     t_args, _keep = _t_args(t, img.shape[0], img.device)
     pl = plan(img, r, compute_dtype, grad=True)
-    part = (torch.empty((pl["groups"], *flow.shape), dtype=torch.float32, device=flow.device)
-            if pl is not None and pl["grouped"] else None)
+    part = (torch.empty((pl["chunks"], *flow.shape), dtype=torch.float32, device=flow.device)
+            if pl is not None and pl["grouped"] and pl["chunks"] > 1 else None)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.warp_windowed_grad_launch(

@@ -6,14 +6,16 @@ two checkouts on one card.
 
 imports ``vfisr_tpu_torch.ops.cuda.warp`` from the checkout DIR (its own
 nvcc build), and for each shape of ``SHAPES`` (K1: the flagship's, the
-training's, the adaptive model's and SAFA's launches) and ``GRAD_SHAPES``
-(K2: the RIFE train step's four launches, and SAFA training's feature
-warp) times GRAPH launches captured in a CUDA graph and replayed REPLAYS
-times after a warm-up: ms per launch, device time, the window origin
-included. Prints one JSON line per shape ("kernel": "K1" or "K2"); a
-shape the checkout's kernel refuses prints its error. Needs a CUDA card
-and nvcc. Run two checkouts in turns in one process each (A, B, B, A) to
-compare them.
+training's, the adaptive model's, SAFA's and SAFA training's launches)
+and ``GRAD_SHAPES`` (K2: the RIFE train step's four launches, and SAFA
+training's feature warp) times GRAPH launches captured in a CUDA graph and
+replayed REPLAYS times after a warm-up: ms per launch, device time, the
+window origin included. Prints one JSON line per shape ("kernel": "K1" or
+"K2") with the checkout's plan of the launch (``plan``: CTAs, and for a
+launch in channel groups its chunks, groups per CTA and ring slots where
+the checkout reports them); a shape the checkout's kernel refuses prints
+its error. Needs a CUDA card and nvcc. Run two checkouts in turns in one
+process each (A, B, B, A) to compare them.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ SHAPES = (
     ("adaptive vfimamba full", (3, 1088, 1920, 3), "f32", "f32", 8),
     ("safa frame", (3, 456, 576, 3), "f32", "f32", 8),
     ("safa feature", (3, 114, 144, 176), "f32", "f32", 8),
+    ("safa train feature", (16, 48, 48, 176), "f32", "f32", 8),
 )
 # K2: the RIFE train step's launches (levels 1-3 at 1/4, 1/2, 1/2 of the
 # 192 crop, both images in one call, and the final warp), and SAFA
@@ -79,7 +82,10 @@ def main() -> int:
         ct = torch.randn(shape, generator=gen).to("cuda", dtypes[img_dt])
         gflow, cg = torch.empty_like(flow), torch.empty(flow.shape, device="cuda")
         row = dict(tree=args.label or args.tree, kernel=kernel, name=name, shape=list(shape),
-                   img=img_dt, window=win_dt, r=r)
+                   img=img_dt, window=win_dt, r=r,
+                   plan=kw.plan(img, r, dtypes[win_dt], grad=kernel == "K2"))
+        if row["plan"] and row["plan"]["grouped"] and "chunks" in row["plan"]:
+            row["plan"]["groups_per_cta"] = -(-row["plan"]["groups"] // row["plan"]["chunks"])
         def launch(kernel=kernel, img=img, flow=flow, out=out, ct=ct, gflow=gflow, cg=cg, r=r,
                    cd=dtypes[win_dt]):
             if kernel == "K1":
