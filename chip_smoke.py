@@ -135,14 +135,39 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    does (``make_sr_train_step``, crisp scenes at 192, the input
    area-resized to 96 or 48; batch 16, no remat): SPAN_TRAIN_STEPS timed
    steps each (ms/step, samples/s, peak memory, no warp launched) and the
-   conv table as in step 13.
+   conv table as in step 13;
+15. streams a video through the port's entry point, process_video
+   (pipeline/streaming.py), with the flagship: 13 frames of step 4's
+   scene at 1920x1080 written to a 30 fps Y4M (the port's writer, in a
+   temporary directory), process_video(method="flagship", target_fps=120,
+   target_resolution=(2560, 1440)) with K1's count set to 0 before and
+   read after and ``window_origins`` raising. Checks: the model the
+   registry built holds every parameter of weights/rife.npz and the
+   calibrated gate; the fused writer thread, yuv420 readback, 49 frames
+   out, 18 K1 launches per pair; each pair's four frames read back from
+   the output Y4M bit-equal to pack_i420(fused_stream_step(...)) computed
+   directly on the decoded frames with the HUD history carried (K1
+   against its twin and its origins at every launch of that), the final
+   endpoint likewise; every midpoint above frame duplication against the
+   rendered truth (PSNR over I420 bytes). Prints interpolated fps (3 x
+   pairs / elapsed), realtime_x, every stage timer, and I420 -> RGB of a
+   1080p frame on the host (VideoReader.read) and on the card (the
+   stream's way);
+16. streams step 9's sequence (pans, a static pair, a cut) as a 30 fps
+   Y4M through process_video with the default model (method=None:
+   get_model("adaptive", load=True)). Checks: full-width RIFE and VFIMamba
+   holding every parameter of their files, a calibrated gate; each pair
+   routed to bin_winner of its motion, every route hit, K1's launches
+   equal to the routes' sum; the HUD and cut composites as in step 9;
+   37 frames out. Prints fps and the timers as step 15.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
-it (K1: the flagship pairs, the RIFE train steps, the adaptive sequence, the
-SAFA pairs and the SAFA train steps; K2: the RIFE and the SAFA train steps)
-and the device time, bound, plain-twin and grid_sample time of exactly
-those launches. The last line is {"ok": true, "device": {...}}.
+it (K1: the flagship pairs, the flagship stream, the RIFE train steps, the
+adaptive sequence, the adaptive stream, the SAFA pairs and the SAFA train
+steps; K2: the RIFE and the SAFA train steps) and the device time, bound,
+plain-twin and grid_sample time of exactly those launches (a stream's
+launches at their shapes' times from steps 7 and 9). The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -825,9 +850,9 @@ def train_phase(kw, rife_npz: Path) -> tuple:
             path_numbers(k2_run, max_err2, tot2, TRAIN_STEPS))
 
 
-def adaptive_phase(kw) -> dict:
+def adaptive_phase(kw) -> tuple:
     """Step 9 of the module docstring. Returns K1's numbers over the counted
-    sequence (``path_numbers``)."""
+    sequence (``path_numbers``), and K1's numbers per pair of each route."""
     from vfisr_tpu_torch.core.frames import to_uint8
     from vfisr_tpu_torch.core.resize import scale_size
     from vfisr_tpu_torch.models.registry import get_model
@@ -1088,9 +1113,13 @@ def adaptive_phase(kw) -> dict:
               f"plain {v['plain']:.4f} ms, grid_sample {v['library']:.4f} ms")
     fields = ("kernel", "bound", "host", "wrapper", "plain", "library")
     start = 0
-    for (name, _, _), n in zip(seq, counts):
+    per_route = {}  # K1's numbers per pair of each route (the stream phase's launches)
+    for (name, _, _), n, route in zip(seq, counts, routes):
         pair = [by_shape[shape_key(a)] for a in recorded[start:start + n]]
         start += n
+        per_route.setdefault(route, dict(
+            {f: sum(v[f] for v in pair) for f in fields},
+            by="bytes" if {v["by"] for v in pair} == {"bytes"} else "operations"))
         if name in dict((m[0], m) for m in MEASURED):
             print(f"adaptive K1 per pair {name}: {n} launches, " + ", ".join(
                 f"{f} {sum(v[f] for v in pair):.4f} ms" for f in fields))
@@ -1102,7 +1131,262 @@ def adaptive_phase(kw) -> dict:
           + f" (mean {ms:.3f}); history pairs {', '.join(f'{t:.3f}' for t in pair_ms[:HISTORY_PAIRS])};"
           f" {launches} K1 launches; max_memory_allocated {peak_mb:.1f} MB")
     _phase("adaptive_timing", t0)
-    return path_numbers(launches, max_err, total, 1)
+    return path_numbers(launches, max_err, total, 1), per_route
+
+
+# the stream phases: the port's video-in, video-out entry point
+# (pipeline/streaming.py::process_video) on Y4M files in a temporary directory
+STREAM_FRAMES = 13  # flagship: 12 pairs, 49 output frames at 2560x1440
+STREAM_OUT = (2560, 1440)
+# adaptive: the adaptive phase's sequence as one stream (5 history pans, a
+# static pair, a 3 px pan, an 8 px pan, a cut)
+STREAM_SCENE = (0, 3, 6, 9, 12, 15, 15, 18, 26, "cut")
+
+
+def write_y4m(path: Path, frames) -> None:
+    """Device uint8 [H,W,3] frames into a 30 fps Y4M with the port's writer."""
+    from vfisr_tpu_torch.data.video_io import VideoWriter
+
+    h, w = frames[0].shape[:2]
+    with VideoWriter(str(path), w, h, 30) as wr:
+        for f in frames:
+            wr.write(f.cpu().numpy())
+
+
+def read_y4m_planes(path: Path) -> list:
+    from vfisr_tpu_torch.data.video_io import VideoReader
+
+    with VideoReader(str(path)) as rd:
+        planes = []
+        while (p := rd.read_i420()) is not None:
+            planes.append(torch.from_numpy(p))
+    return planes
+
+
+def capturing_build(streaming, hook):
+    """streaming._build_model, handing each model it builds to hook first."""
+    real = streaming._build_model
+
+    def build(*args, **kwargs):
+        model = real(*args, **kwargs)
+        hook(model)
+        return model
+
+    return build
+
+
+def print_stream(label: str, stats: dict, pairs: int, card: str) -> None:
+    fps = len(TS) * pairs / stats["elapsed_s"]
+    print(f"stream {label} ({card}): {pairs} pairs in {stats['elapsed_s']:.3f} s, "
+          f"interpolated fps {fps:.2f}, realtime_x {stats['realtime_x']:.4f}, "
+          f"{stats['output_frames']} frames out, readback {stats['readback_format']} "
+          f"{stats['readback_mb']} MB, device_busy_fraction {stats['device_busy_fraction']}")
+    print(f"stream {label} timers: " + ", ".join(
+        f"{k} {stats[k]}" for k in ("decode_wait_s", "dispatch_s", "first_dispatch_s",
+                                     "enqueue_wait_s", "main_other_s", "device_materialize_s",
+                                     "encode_s")))
+    print(f"stream {label} stats: {stats}")
+
+
+def stream_flagship_phase(kw, rife_npz: Path, card: str, per_pair: dict) -> dict:
+    """Step 15 of the module docstring. Returns K1's numbers over the
+    stream's counted launches, timed per pair in step 7."""
+    from vfisr_tpu_torch.core.color import i420_to_rgb, rgb_to_i420
+    from vfisr_tpu_torch.core.frames import to_uint8
+    from vfisr_tpu_torch.core.resize import resize
+    from vfisr_tpu_torch.data.video_io import VideoReader, probe_video
+    from vfisr_tpu_torch.pipeline import streaming
+    from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    ow, oh = STREAM_OUT
+    pairs = STREAM_FRAMES - 1
+    built = []
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = Path(tmp) / "in.y4m", Path(tmp) / "out.y4m"
+        write_y4m(src, [game_frame(i, dev) for i in range(STREAM_FRAMES)])
+        meta = probe_video(str(src))
+        require((meta.width, meta.height, meta.fps, meta.frame_count) == (W, H, 30.0, STREAM_FRAMES),
+                f"input Y4M {meta}")
+        # I420 -> RGB of a 1080p frame on the host (VideoReader.read) and on
+        # the card (process_video): why the stream converts on the card
+        with VideoReader(str(src)) as rd:
+            buf = torch.from_numpy(rd.read_i420())
+        on_host = host_ms(lambda: i420_to_rgb(buf, H, W), 5)
+        on_card = buf.to(dev)
+        print(f"stream decode I420 -> RGB of a {W}x{H} frame: host {on_host:.3f} ms, "
+              f"on the card {time_ms(lambda: i420_to_rgb(on_card, H, W), 20):.4f} ms")
+        t0 = _phase("stream_flagship_write", t0)
+
+        real_build = streaming._build_model
+        streaming._build_model = capturing_build(streaming, built.append)
+        try:
+            with origin_table_raises(kw):
+                kw.launches = 0
+                stats = streaming.process_video(str(src), str(out), method="flagship",
+                                                target_fps=120, target_resolution=STREAM_OUT)
+                launches = kw.launches
+        finally:
+            streaming._build_model = real_build
+        t0 = _phase("stream_flagship_run", t0)
+        print_stream("flagship", stats, pairs, card)
+        vfi = built[0]
+        require(vfi._module.config.channels == (256, 160, 112, 80), "full-width RIFE")
+        want = params_from_jax(load_npz(str(rife_npz)))
+        state = vfi._module.state_dict()
+        require(set(state) == set(want) and all(torch.equal(state[k].float().cpu(),
+                                                            want[k].to(state[k].dtype).float())
+                                                for k in want),
+                f"every parameter of {rife_npz.name} loaded")
+        require(vfi.base_config.scene_warp_ssim_threshold != 1.0, "calibrated scene gate loaded")
+        require(stats["pipeline"] == "fused_writer_thread" and stats["readback_format"] == "yuv420"
+                and stats["input_frames"] == STREAM_FRAMES
+                and stats["output_frames"] == 4 * pairs + 1, f"stream stats {stats}")
+        require(launches == LAUNCHES_PER_PAIR * pairs, f"{launches} K1 launches in the stream")
+        planes = read_y4m_planes(out)
+        require(len(planes) == 4 * pairs + 1 and probe_video(str(out)).frame_count == len(planes),
+                f"{len(planes)} frames in the output Y4M")
+        with VideoReader(str(src)) as rd:
+            decoded = [torch.from_numpy(f).to(dev) for f in rd]
+
+    # each pair's four frames against the fused step and the pack computed
+    # directly, the HUD history carried the same way; K1 against its twin
+    # and its origins at every launch of it
+    vfi.reset_history()
+    real_warp, max_err = kw.warp_windowed, 0.0
+    gain = []
+    scale = oh / H
+    for i in range(pairs):
+        recs = []
+        kw.warp_windowed = _recording(kw, recs)
+        try:
+            up = vfi.fused_stream_step(decoded[i], decoded[i + 1], scale, TS)
+        finally:
+            kw.warp_windowed = real_warp
+        want = streaming.pack_i420(up).cpu().reshape(len(TS) + 1, -1)
+        got = torch.stack(planes[4 * i:4 * i + 4])
+        require(torch.equal(got, want), f"stream pair {i}: the output planes are "
+                                        f"pack_i420(fused_stream_step(...)) "
+                                        f"(max {(got.int() - want.int()).abs().max().item()} LSB)")
+        require(len(recs) == LAUNCHES_PER_PAIR, f"stream pair {i}: {len(recs)} K1 launches")
+        for j, a in enumerate(recs):
+            check_origins(kw, f"stream pair {i} launch {j}", a)
+            max_err = max(max_err, check_warp(kw, f"stream pair {i} launch {j}", a))
+        for k, t in enumerate(TS):
+            truth = rgb_to_i420(to_uint8(resize(game_frame(i + t, dev).float()[None] / 255.0,
+                                                (oh, ow), "lanczos4")))[0].cpu()
+            p_mid, p_dup = psnr(got[1 + k], truth), psnr(got[0], truth)
+            gain.append(p_mid - p_dup)
+            require(p_mid > p_dup, f"stream pair {i} t={t}: interpolated {p_mid:.2f} dB <= "
+                                   f"duplicate {p_dup:.2f} dB")
+    last = rgb_to_i420(torch.from_numpy(vfi.upscale(decoded[-1].cpu().numpy(), scale))).cpu()
+    require(torch.equal(planes[-1], last), "the final endpoint")
+    print(f"stream flagship: every pair's planes equal pack_i420(fused_stream_step(...)); "
+          f"midpoint PSNR gain over frame duplication (dB, I420 bytes against the rendered "
+          f"truth): min {min(gain):.3f} mean {sum(gain) / len(gain):.3f}; K1 vs twin max_abs_err "
+          f"{max_err:.3e} over {LAUNCHES_PER_PAIR * pairs} launches")
+    _phase("stream_flagship_checks", t0)
+    return path_numbers(launches, max_err, per_pair, pairs)
+
+
+def stream_adaptive_phase(kw, card: str, per_route: dict, err: float) -> dict:
+    """Step 16 of the module docstring. Returns K1's numbers over the
+    stream's counted launches, timed per pair and route in step 9."""
+    from vfisr_tpu_torch.models.sota import vfimamba as tvm
+    from vfisr_tpu_torch.models.sota.rife import RIFEConfig
+    from vfisr_tpu_torch.pipeline import streaming
+    from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax
+    from vfisr_tpu_torch.utils.router_gate import bin_winner, expert_bins
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    pairs = len(STREAM_SCENE) - 1
+    built, calls = [], []
+
+    def hook(model):
+        """Record each pair's inputs, signals and midpoints."""
+        real_analyze, real_interp = model.router.analyze_device, model.interpolate_batch
+
+        def analyze(x0, x1):
+            start = kw.launches
+            sig = real_analyze(x0, x1)
+            calls.append(dict(x0=x0, x1=x1, sig=sig, start=start))
+            return sig
+
+        def interpolate(x0, x1, timestamps):
+            out = real_interp(x0, x1, timestamps)
+            calls[-1].update(out=out, launches=kw.launches - calls[-1]["start"])
+            return out
+
+        model.router.analyze_device, model.interpolate_batch = analyze, interpolate
+        built.append(model)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = Path(tmp) / "in.y4m", Path(tmp) / "out.y4m"
+        write_y4m(src, [scene_frame(x, dev) for x in STREAM_SCENE])
+        t0 = _phase("stream_adaptive_write", t0)
+        real_build = streaming._build_model
+        streaming._build_model = capturing_build(streaming, hook)
+        try:
+            with origin_table_raises(kw):
+                kw.launches = 0
+                stats = streaming.process_video(str(src), str(out), target_fps=120,
+                                                target_resolution=STREAM_OUT)
+                launches = kw.launches
+        finally:
+            streaming._build_model = real_build
+        t0 = _phase("stream_adaptive_run", t0)
+        print_stream("adaptive", stats, pairs, card)
+        n_out = len(read_y4m_planes(out))
+    model = built[0]
+    gate = model.gate_path
+    require(stats["pipeline"] == "writer_thread" and stats["readback_format"] == "yuv420"
+            and stats["output_frames"] == n_out == 4 * pairs + 1, f"stream stats {stats}")
+    require(model.enable_vfimamba and model._rife.CONFIG == RIFEConfig()
+            and model._rife.CONFIG.channels == (256, 160, 112, 80)
+            and model._vfimamba.variant == "full" and model._vfimamba.cfg == tvm.MambaConfig(),
+            "the default model: full-width RIFE and VFIMamba")
+    for expert, name in ((model._rife, "rife.npz"), (model._vfimamba, "vfimamba.npz")):
+        state, want = expert.module.state_dict(), params_from_jax(load_npz(str(ROOT / "weights" / name)))
+        require(set(state) == set(want) and all(torch.equal(state[k].cpu(), want[k]) for k in want),
+                f"every parameter of {name} loaded")
+    require(model.router.scene_warp_ssim_threshold != 1.0 and expert_bins("native", gate),
+            "calibrated scene gate and expert bins")
+    require(len(calls) == pairs, f"{len(calls)} pairs routed")
+    routes = []
+    for i, c in enumerate(calls):
+        sig = c["sig"]
+        mm = float(sig["motion_mean"][0])
+        route = "scene_change" if bool(sig["is_scene_change"][0]) else bin_winner(
+            "native", mm, path=gate)
+        routes.append(route)
+        print(f"stream adaptive pair {i} ({STREAM_SCENE[i]} -> {STREAM_SCENE[i + 1]}): "
+              f"motion_mean {mm:.4f} px -> {route}, {c['launches']} K1 launches")
+        require(c["launches"] == K1_PER_ROUTE[route], f"stream pair {i}: {c['launches']} K1 "
+                                                      f"launches for route {route}")
+        hud = sig["hud_mask"][0] & bool(sig["hud_coverage"][0] > 0.01)
+        if i >= HISTORY_PAIRS:
+            require(bool(hud.any()), f"stream pair {i}: the HUD composite engaged")
+        x0, x1 = c["x0"][0], c["x1"][0]
+        for k, t in enumerate(TS):
+            mid, src_ = c["out"][0, k], (x0 if t < 0.5 else x1)
+            require(torch.equal(mid[hud], src_[hud]), f"stream pair {i} t={t}: HUD pixels")
+            if route == "scene_change":
+                require(torch.equal(mid[~hud], x0[~hud]), f"stream pair {i} t={t}: the cut holds x0")
+    require(routes[-1] == "scene_change" and set(routes) == set(K1_PER_ROUTE),
+            f"the stream hits every route: {routes}")
+    stats_routes = model.get_stats()
+    require([stats_routes[r] for r in ("rife", "vfimamba", "scene_change")]
+            == [routes.count(r) for r in ("rife", "vfimamba", "scene_change")],
+            f"routing stats {stats_routes}")
+    require(launches == sum(K1_PER_ROUTE[r] for r in routes),
+            f"{launches} K1 launches, the routes' sum {sum(K1_PER_ROUTE[r] for r in routes)}")
+    _phase("stream_adaptive_checks", t0)
+    fields = ("kernel", "plain", "bound", "library")
+    total = {f: sum(per_route[r][f] for r in routes) for f in fields}
+    total["by"] = "bytes" if {per_route[r]["by"] for r in routes} == {"bytes"} else "operations"
+    return path_numbers(launches, err, total, 1)
 
 
 def require_whole_c(kw, label: str, recs: list, grad: bool = False) -> None:
@@ -1907,8 +2191,10 @@ def main() -> int:
           f"wrapper {totals['wrapper']:.4f} ms, "
           f"plain {totals['plain']:.4f} ms, grid_sample {totals['library']:.4f} ms")
     k1_flagship = path_numbers(launches, max_err, totals, PAIRS)
+    k1_stream_flagship = stream_flagship_phase(kw, rife_npz, card, totals)
     k1_train, k2_train = train_phase(kw, rife_npz)
-    k1_adaptive = adaptive_phase(kw)
+    k1_adaptive, per_route = adaptive_phase(kw)
+    k1_stream_adaptive = stream_adaptive_phase(kw, card, per_route, k1_adaptive["err"])
     k1_safa = safa_phase(kw)
     span_phase(kw)
     k1_safa_train, k2_safa_train = train_safa_phase(kw)
@@ -1917,7 +2203,8 @@ def main() -> int:
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
     print(json.dumps({"kernels": [
-        kernel_entry("warp_windowed", [k1_flagship, k1_train, k1_adaptive, k1_safa, k1_safa_train]),
+        kernel_entry("warp_windowed", [k1_flagship, k1_stream_flagship, k1_train, k1_adaptive,
+                                       k1_stream_adaptive, k1_safa, k1_safa_train]),
         kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

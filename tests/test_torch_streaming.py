@@ -1,0 +1,390 @@
+"""The port's streaming pipeline (``vfisr_tpu_torch/pipeline/streaming.py``)
+and its CLIs, held against ``vfisr_tpu/pipeline/streaming.py``.
+
+Both packages stream the same decoded frames: the port reads them from a
+Y4M file it wrote; the JAX side gets them from a stub reader patched into
+its module, and a stub writer captures its RGB output frames (the test's
+patches, not edits of the reference). The port writes Y4M; its planes are
+held against the JAX frames packed by the port's ``rgb_to_i420``.
+Models: ``lanczos`` (the batched writer thread); the flagship with a
+narrow f32 IFNet injected into both packages (the fused writer thread); the
+adaptive model with narrow experts (hosted routes), random parameters from
+a seed; a model without the
+batched API (the host fallback), the same object on both sides. Warps are
+each package's CPU default, the exact gather.
+
+Tolerances, uint8 I420 bytes: ``pack_i420`` within 1 LSB of JAX's
+``_get_pack_i420`` (measured: max 1 on 3 of 36864 bytes at 64x96 and on
+414 of 6.2 M at 1080p: f32 products summed in another order, a few land on
+the other side of a rounding step), at most 1e-3 of the bytes off;
+``lanczos`` with no resize after the model within 1 LSB (the same f32
+taps, and the pack's rounding); with ``fit`` (the port's Lanczos4 on the
+device against cv2's fixed-point Lanczos4 on the host) within 2 LSB in RGB
+(the repo's bound for cv2 comparisons), so 3 in I420; the flagship and the
+adaptive model within 2 (frames within 1 LSB, as their own tests hold
+them, plus the pack's rounding); the host fallback exact. Measured here:
+1, 2, 0, 1 and 0 LSB.
+"""
+
+import json
+import subprocess
+import sys
+import threading
+import types
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import game_frames, noisy_params, smooth_frames
+from vfisr_tpu.data.video_io import VideoMeta as JaxMeta
+from vfisr_tpu.models.novel import adaptive_pipeline as jap
+from vfisr_tpu.models.sota import rife as jrife, vfimamba as jvm
+from vfisr_tpu.pipeline import flagship as jflag, streaming as jstream
+from vfisr_tpu.utils.router_gate import scene_warp_threshold
+from vfisr_tpu_torch.core.color import rgb_to_i420
+from vfisr_tpu_torch.data import video_io as tvio
+from vfisr_tpu_torch.models.novel import adaptive_pipeline as tap
+from vfisr_tpu_torch.models.sota import rife as trife, vfimamba as tvm
+from vfisr_tpu_torch.pipeline import flagship as tflag, streaming as tstream
+from vfisr_tpu_torch.utils.checkpoint import params_from_jax
+
+ROOT = Path(__file__).resolve().parents[1]
+STATS_KEYS = {"input_frames", "output_frames", "target_fps", "target_resolution", "elapsed_s",
+              "realtime_x", "model", "pipeline", "decode_wait_s", "dispatch_s",
+              "first_dispatch_s", "enqueue_wait_s", "main_other_s", "device_materialize_s",
+              "encode_s", "readback_format", "readback_mb", "device_busy_fraction"}
+RIFE_NARROW = dict(channels=(32, 24, 16, 16), num_convs=2)
+MAMBA_NARROW = dict(d_model=32, d_state=4, dt_rank=4, layers=2, refine_levels=2)
+
+
+def write_clip(path, frames, fps=30) -> np.ndarray:
+    """Write frames to a Y4M file with the port's writer; returns the frames
+    its reader decodes, which both packages then stream."""
+    h, w = frames.shape[1:3]
+    with tvio.VideoWriter(str(path), w, h, fps) as wr:
+        for f in frames:
+            wr.write(f)
+    with tvio.VideoReader(str(path)) as rd:
+        return np.stack(list(rd))
+
+
+def read_planes(path) -> np.ndarray:
+    with tvio.VideoReader(str(path)) as rd:
+        planes = []
+        while (p := rd.read_i420()) is not None:
+            planes.append(p)
+    return np.stack(planes)
+
+
+def tiny_clip_frames() -> np.ndarray:
+    """tests/test_streaming.py's clip: a smooth 128x96 texture moving 4 px
+    per frame."""
+    import cv2
+
+    rng = np.random.default_rng(3)
+    base = cv2.resize(rng.integers(0, 256, (12, 16, 3), np.uint8), (128, 96),
+                      interpolation=cv2.INTER_CUBIC)
+    return np.stack([np.roll(base, 4 * i, axis=1) for i in range(8)])
+
+
+def run_jax(monkeypatch, frames, model=None, fps=30.0, **kw):
+    """JAX's process_video over frames (readback rgb); returns its stats and
+    the RGB frames its writer was given."""
+    n, h, w = frames.shape[:3]
+    written = []
+
+    class Reader:
+        def __init__(self, path, start_frame=0):
+            self._it = iter(list(frames))
+
+        def read(self):
+            return next(self._it, None)
+
+        def close(self):
+            pass
+
+    class Writer:
+        def __init__(self, path, width, height, fps):
+            pass
+
+        def write(self, f):
+            written.append(np.array(f))
+
+        def close(self):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            pass
+
+    with monkeypatch.context() as mp:
+        mp.setattr(jstream, "VideoReader", Reader)
+        mp.setattr(jstream, "VideoWriter", Writer)
+        mp.setattr(jstream, "probe_video", lambda p: JaxMeta(w, h, fps, n, n / fps))
+        if model is not None:
+            mp.setattr(jstream, "_build_model", lambda *a, **k: model)
+        stats = jstream.process_video("in", "out", readback="rgb", **kw)
+    return stats, np.stack(written)
+
+
+def run_port(monkeypatch, clip, out, model=None, **kw):
+    with monkeypatch.context() as mp:
+        if model is not None:
+            mp.setattr(tstream, "_build_model", lambda *a, **k: model)
+        stats = tstream.process_video(str(clip), str(out), device="cpu", **kw)
+    return stats, read_planes(out)
+
+
+def assert_same_stream(tstats, tplanes, jstats, jrgb, tol: int):
+    assert set(tstats) == set(jstats) == STATS_KEYS
+    for k in ("input_frames", "output_frames", "target_resolution", "pipeline", "model"):
+        assert tstats[k] == jstats[k], k
+    ref = rgb_to_i420(torch.from_numpy(jrgb)).numpy()
+    assert tplanes.shape == ref.shape
+    d = np.abs(tplanes.astype(int) - ref.astype(int))
+    assert d.max() <= tol, (d.max(), (d > 0).mean())
+
+
+def test_pack_i420_matches_jax():
+    rng = np.random.default_rng(0)
+    smooth = np.floor(smooth_frames(rng, 2, 64, 96) * 255.0 + 0.5).astype(np.uint8)
+    for x in (rng.integers(0, 256, (4, 64, 96, 3), np.uint8), smooth):
+        ref = np.asarray(jstream._get_pack_i420()(jnp.asarray(x)))
+        got = tstream.pack_i420(torch.from_numpy(x))
+        assert got.dtype == torch.uint8 and got.shape == ref.shape == (x.shape[0], 96, 96)
+        d = np.abs(got.numpy().astype(int) - ref.astype(int))
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+    with pytest.raises(ValueError, match="H % 4"):
+        tstream.pack_i420(torch.zeros((1, 6, 8, 3), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("target,tol", [((170, 128), 1), ((176, 128), 3)])
+def test_lanczos_stream_matches(tmp_path, monkeypatch, target, tol):
+    frames = write_clip(tmp_path / "in.y4m", tiny_clip_frames())
+    fits = []
+    real_resize = tstream.resize
+
+    def counting(x, size, method="lanczos4"):
+        fits.append(size)
+        return real_resize(x, size, method)
+
+    monkeypatch.setattr(tstream, "resize", counting)
+    kw = dict(method="lanczos", target_fps=120, target_resolution=target, max_frames=6)
+    tstats, tplanes = run_port(monkeypatch, tmp_path / "in.y4m", tmp_path / "out.y4m", **kw)
+    jstats, jrgb = run_jax(monkeypatch, frames, **kw)
+    assert tstats["pipeline"] == "writer_thread" and tstats["readback_format"] == "yuv420"
+    # 5 pairs x (1 endpoint + 3 mids) + the final endpoint
+    assert tstats["output_frames"] == 21 and len(tplanes) == 21
+    # fit runs where scale_size does not give the target: each pair, and
+    # the final endpoint
+    assert fits == ([] if target == (170, 128) else [(128, 176)] * 6)
+    assert_same_stream(tstats, tplanes, jstats, jrgb, tol)
+    if target == (170, 128):
+        # every readback mode writes the same file
+        auto = (tmp_path / "out.y4m").read_bytes()
+        for mode in ("rgb", "yuv420"):
+            stats, _ = run_port(monkeypatch, tmp_path / "in.y4m", tmp_path / f"{mode}.y4m",
+                                readback=mode, **kw)
+            assert stats["readback_format"] == mode
+            assert (tmp_path / f"{mode}.y4m").read_bytes() == auto
+
+
+def _random_params(net, seed: int):
+    """(flat, tree) as ``noisy_params`` gives them: seeded normal parameters
+    (std 0.05) of net's shapes, without running Flax's init (seconds to
+    minutes on the CPU)."""
+    z, t = jnp.zeros((1, 64, 64, 3), jnp.float32), jnp.asarray([0.5])
+    shapes = jax.eval_shape(net.init, jax.random.PRNGKey(0), z, z, t)["params"]
+    return noisy_params(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes), seed)
+
+
+def _narrow_rife(seed: int):
+    """(jax RIFEModel, jax IFNet, port RIFEModel): a narrow f32 IFNet with
+    the same random parameters in both packages."""
+    cfg = jrife.RIFEConfig(**RIFE_NARROW)
+    net = jrife.IFNet(cfg)
+    flat, tree = _random_params(net, seed)
+    jr = jrife.RIFEModel(device="cpu", config=cfg)
+    jr.params = tree
+    jr._apply = jax.jit(lambda p, a, b, s: net.apply({"params": p}, a, b, s))
+    tr = trife.RIFEModel(device="cpu", config=trife.RIFEConfig(**RIFE_NARROW))
+    tr.module = trife.IFNet(tr.CONFIG)
+    tr.module.load_state_dict(params_from_jax(flat))
+    tr.module.eval().requires_grad_(False)
+    jr._loaded = tr._loaded = True
+    return jr, net, tr
+
+
+def test_flagship_stream_matches(tmp_path, monkeypatch):
+    frames = write_clip(tmp_path / "in.y4m", game_frames(8, 64, 96))
+    cfg = dict(analysis_hw=(32, 64), scene_warp_ssim_threshold=float(scene_warp_threshold()))
+    jr, jnet, tr = _narrow_rife(1)
+    jv = jflag.FlagshipVFI(device="cpu", config=jflag.FlagshipConfig(**cfg))
+    jv._rife, jv._module, jv._loaded = jr, jnet, True
+    tv = tflag.FlagshipVFI(device="cpu", config=tflag.FlagshipConfig(**cfg))
+    tv._rife, tv._module, tv._loaded = tr, tr.module, True
+    kw = dict(target_fps=120, target_resolution=(144, 96))
+    tstats, tplanes = run_port(monkeypatch, tmp_path / "in.y4m", tmp_path / "out.y4m", tv, **kw)
+    jstats, jrgb = run_jax(monkeypatch, frames, jv, **kw)
+    assert tstats["pipeline"] == "fused_writer_thread" and tstats["output_frames"] == 29
+    assert int(tv._hist[1][0]) == 7  # the HUD ring carried across the 7 pairs
+    assert_same_stream(tstats, tplanes, jstats, jrgb, 2)
+
+
+def _pan(offset, cut: bool = False) -> np.ndarray:
+    """[64,96,3] uint8: a smooth texture moved right by offset px (another,
+    seeded blocky one for a cut), a static HUD box top left."""
+    yy, xx = np.mgrid[0:64, 0:96].astype(np.float32)
+    x = xx - offset
+    f = np.stack([0.5 + 0.3 * np.sin(x / 5.0 + yy / 7.0),
+                  0.5 + 0.3 * np.cos(x / 4.0) * np.sin(yy / 6.0),
+                  0.5 + 0.2 * np.sin((x + yy) / 9.0)], -1)
+    if cut:
+        f = np.kron(np.random.default_rng(1).random((32, 48, 3)), np.ones((2, 2, 1)))
+    f[:10, :19] = (0.9, 0.9, 0.1)
+    return np.clip(np.floor(f * 255.0 + 0.5), 0, 255).astype(np.uint8)
+
+
+def test_adaptive_stream_matches(tmp_path, monkeypatch):
+    # 1 px pans (VFIMamba at this size under the shipped calibration), then
+    # 3 px (RIFE), then a cut
+    offsets = [0, 1, 2, 3, 4, 5, 6, 9, 12]
+    clip = np.stack([_pan(o) for o in offsets] + [_pan(0, cut=True)])
+    frames = write_clip(tmp_path / "in.y4m", clip)
+    jr, _, tr = _narrow_rife(1)
+    jv = jvm.VFIMambaModel(device="cpu")
+    jv.cfg = jvm.MambaConfig(**MAMBA_NARROW)
+    vnet = jvm.VFIMambaNet(jv.cfg)
+    vflat, jv.params = _random_params(vnet, 2)
+    jv._apply = jax.jit(lambda p, a, b, s: vnet.apply({"params": p}, a, b, s))
+    tv = tvm.VFIMambaModel(device="cpu")
+    tv.cfg = tvm.MambaConfig(**MAMBA_NARROW)
+    tv.module = tvm.VFIMambaNet(tv.cfg)
+    tv.module.load_state_dict(params_from_jax(vflat))
+    tv.module.eval()
+    jv._loaded = tv._loaded = True
+    jp, tp = jap.AdaptivePipeline(device="cpu"), tap.AdaptivePipeline(device="cpu")
+    jp._rife, jp._vfimamba, tp._rife, tp._vfimamba = jr, jv, tr, tv
+    jp._loaded = tp._loaded = True
+    kw = dict(target_fps=120, target_resolution=(144, 96))
+    tstats, tplanes = run_port(monkeypatch, tmp_path / "in.y4m", tmp_path / "out.y4m", tp, **kw)
+    jstats, jrgb = run_jax(monkeypatch, frames, jp, **kw)
+    assert tstats["pipeline"] == "writer_thread" and tstats["output_frames"] == 37
+    routes = tp.get_stats()
+    assert routes == jp.get_stats()
+    assert [routes[k] for k in ("vfimamba", "rife", "scene_change")] == [6, 2, 1]
+    assert_same_stream(tstats, tplanes, jstats, jrgb, 2)
+
+
+class _HostOnly:
+    """A model without the batched API: crossfade and nearest upscale on
+    the host, numpy only, so the same object serves both packages."""
+
+    info = types.SimpleNamespace(name="HostOnly")
+
+    def upscale(self, frame, scale):
+        h, w = frame.shape[:2]
+        oh, ow = int(h * scale), int(w * scale)
+        return frame[np.arange(oh) * h // oh][:, np.arange(ow) * w // ow]
+
+    def process_pair(self, f0, f1, num_intermediate=3, target_scale=1.333):
+        ts = [(i + 1) / (num_intermediate + 1) for i in range(num_intermediate)]
+        mids = [np.floor(f0 * (1 - t) + f1 * t + 0.5).astype(np.uint8) for t in ts]
+        return types.SimpleNamespace(
+            frames=[self.upscale(f, target_scale) for f in (f0, *mids, f1)])
+
+
+def test_host_fallback_stream_matches(tmp_path, monkeypatch):
+    frames = write_clip(tmp_path / "in.y4m", tiny_clip_frames()[:4])
+    kw = dict(target_fps=60, target_resolution=(170, 128))
+    tstats, tplanes = run_port(monkeypatch, tmp_path / "in.y4m", tmp_path / "out.y4m",
+                               _HostOnly(), **kw)
+    jstats, jrgb = run_jax(monkeypatch, frames, _HostOnly(), **kw)
+    assert tstats["pipeline"] == "host_fallback" and tstats["output_frames"] == 7
+    assert_same_stream(tstats, tplanes, jstats, jrgb, 0)
+
+
+def _in_thread(fn, timeout=120.0):
+    """fn() on a thread joined with a timeout: (result, exception)."""
+    box = {}
+
+    def run():
+        try:
+            box["result"] = fn()
+        except Exception as e:  # handed to the test
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(timeout)
+    assert not th.is_alive(), "process_video did not return"
+    return box.get("result"), box.get("error")
+
+
+@pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_decode_failure_does_not_deadlock(tmp_path, monkeypatch):
+    """A reader that dies mid-stream still delivers the EOF sentinel:
+    process_video ends with the frames read so far. (The decode thread
+    reads a Y4M file's frames as stored, ``read_i420``.)"""
+    write_clip(tmp_path / "in.y4m", tiny_clip_frames())
+    real_read = tvio.VideoReader.read_i420
+    calls = {"n": 0}
+
+    def flaky_read(self):
+        calls["n"] += 1
+        if calls["n"] > 3:
+            raise RuntimeError("simulated corrupt stream")
+        return real_read(self)
+
+    monkeypatch.setattr(tvio.VideoReader, "read_i420", flaky_read)
+    stats, err = _in_thread(lambda: tstream.process_video(
+        str(tmp_path / "in.y4m"), str(tmp_path / "out.y4m"), method="lanczos",
+        target_fps=120, target_resolution=(170, 128), device="cpu"))
+    assert err is None and stats["input_frames"] == 3
+    assert stats["output_frames"] == 9  # 2 pairs x 4 + the final endpoint
+
+
+def test_writer_failure_raises_on_main_thread(tmp_path, monkeypatch):
+    write_clip(tmp_path / "in.y4m", tiny_clip_frames())
+
+    def failing(self, planes):
+        raise OSError("simulated full disk")
+
+    monkeypatch.setattr(tvio.VideoWriter, "write_i420", failing)
+    _, err = _in_thread(lambda: tstream.process_video(
+        str(tmp_path / "in.y4m"), str(tmp_path / "out.y4m"), method="lanczos",
+        target_fps=120, target_resolution=(170, 128), device="cpu", queue_depth=2))
+    assert isinstance(err, OSError) and "full disk" in str(err)
+
+
+def test_process_and_batch_cli(tmp_path):
+    clip = tiny_clip_frames()[:4]
+    write_clip(tmp_path / "in.y4m", clip)
+    stats = tmp_path / "stats.json"
+    cmd = [sys.executable, "-m", "vfisr_tpu_torch.process", "--input", str(tmp_path / "in.y4m"),
+           "--output", str(tmp_path / "out.y4m"), "--method", "lanczos", "--target-resolution",
+           "170x128", "--device", "cpu", "--stats-out", str(stats)]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert json.loads(stats.read_text())["output_frames"] == 13
+    assert tvio.probe_video(str(tmp_path / "out.y4m")).frame_count == 13
+
+    src = tmp_path / "clips"
+    src.mkdir()
+    for name, k in (("a", 3), ("b", 4)):
+        write_clip(src / f"{name}.y4m", clip[:k])
+    cmd = [sys.executable, "-m", "vfisr_tpu_torch.batch_process", "--input-dir", str(src),
+           "--output-dir", str(tmp_path / "out"), "--method", "lanczos", "--target-resolution",
+           "170x128", "--device", "cpu", "--workers", "2"]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    summary = json.loads((tmp_path / "out" / "batch_process_summary.json").read_text())
+    assert [r["output_frames"] for r in summary["results"]] == [9, 13]
+    assert [tvio.probe_video(str(tmp_path / "out" / f"{n}_lanczos.y4m")).frame_count
+            for n in "ab"] == [9, 13]

@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of ``vfisr_tpu`` for one NVIDIA H100.
 
-The layout mirrors the JAX package (core/, ops/, models/, pipeline/,
-train/, utils/): each module here is the counterpart of the module at the same path
+The layout mirrors the JAX package (core/, data/, ops/, models/,
+pipeline/, train/, utils/): each module here is the counterpart of the module at the same path
 in ``vfisr_tpu/``, which stays the reference. Public functions keep the
 JAX layout (NHWC, floats in [0, 1]) so the two compare like with like;
 inside, modules use PyTorch idiom (``nn.Module``s, NCHW convolutions, an

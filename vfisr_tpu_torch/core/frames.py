@@ -6,11 +6,11 @@ host boundary.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def to_float(frame, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -42,10 +42,12 @@ def from_batched(x: torch.Tensor) -> np.ndarray:
     return to_uint8(x).cpu().numpy()
 
 
+@functools.lru_cache(maxsize=64)
 def _reflect_index(size: int, before: int, after: int, device) -> torch.Tensor:
     """Source indices of an axis of ``size`` reflect-padded by (before,
     after), the edge not repeated, reflecting again past the far edge as
-    numpy's and jnp.pad's 'reflect' do for pads wider than the axis."""
+    numpy's and jnp.pad's 'reflect' do for pads wider than the axis. Kept
+    per shape and device: a stream pads every frame alike."""
     i = torch.arange(-before, size + after, device=device)
     if size == 1:
         return torch.zeros_like(i)
@@ -72,12 +74,9 @@ def pad_to_multiple(x: torch.Tensor, multiple: int = 32
     pad_w = (multiple - w % multiple) % multiple
     if pad_h == 0 and pad_w == 0:
         return x, (0, 0, 0, 0)
-    squeeze = x.ndim == 3
-    x4 = x[None] if squeeze else x
-    # 'reflect' excludes the edge, as numpy's and jnp.pad's 'reflect' do
-    padded = F.pad(x4.permute(0, 3, 1, 2), (0, pad_w, 0, pad_h), mode="reflect")
-    padded = padded.permute(0, 2, 3, 1)
-    return (padded[0] if squeeze else padded), (0, pad_w, 0, pad_h)
+    # 'reflect' excludes the edge and reflects again past the far edge, as
+    # jnp.pad's does at a pad as wide as the side
+    return pad_reflect(x, 0, pad_h, 0, pad_w), (0, pad_w, 0, pad_h)
 
 
 def unpad(x: torch.Tensor, original_h: int, original_w: int) -> torch.Tensor:

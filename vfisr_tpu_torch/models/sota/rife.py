@@ -277,9 +277,13 @@ class RIFEModel(BaseModel):
     def load(self, weights_path: Optional[str] = None) -> None:
         """Build the IFNet (seeded init) and load ``weights_path``, or
         ``weights/<WEIGHTS>.npz`` when it exists and no path is given. The
-        module is left in inference mode, without gradients."""
+        module is left in inference mode, without gradients. Sets cuDNN and
+        matmul TF32 off: an f32 config keeps the reference's f32 convs."""
         from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax
         from vfisr_tpu_torch.utils.paths import default_weights
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
         auto = weights_path is None
         if auto:

@@ -51,6 +51,10 @@ class _Traditional(BaseModel):
     SR_METHOD = "lanczos4"
 
     def load(self) -> None:
+        """Sets cuDNN and matmul TF32 off: the f32 resize and Farneback
+        convs keep the reference's f32 semantics."""
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
         self._loaded = True
 
     def upscale_batch(self, x: torch.Tensor, scale: float = 1.333) -> torch.Tensor:
