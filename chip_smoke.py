@@ -159,15 +159,42 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    holding every parameter of their files, a calibrated gate; each pair
    routed to bin_winner of its motion, every route hit, K1's launches
    equal to the routes' sum; the HUD and cut composites as in step 9;
-   37 frames out. Prints fps and the timers as step 15.
+   37 frames out. Prints fps and the timers as step 15;
+17. evaluates with the evaluation library (vfisr_tpu_torch/evaluation/) on
+   the card: 7 frames of step 4's 1920x1080 scene (its rectangle moving 8 px
+   per frame under the HUD box) as ground truth, the odd ones interpolated
+   from their neighbours by get_model("adaptive", load=True) (t = 0.5) as
+   the prediction. With K1's count set to 0 before and read after and
+   ``window_origins`` raising: QualityEvaluator("cuda").evaluate,
+   evaluate_flolpips, evaluate_temporal_consistency,
+   run_comprehensive_benchmark and detect_ui_regions (12 K1 launches per
+   Farneback flow at 1080p, 4 flows per pair: 288). Checks: the launch
+   count; QualityEvaluator leaves TF32 off; LPIPS in its calibrated-heads
+   mode; finite metrics in range, PSNR inf at the endpoints and above 20 dB
+   at the midpoints, the frame counts, UI masks covering the HUD; PSNR
+   (1e-3 dB), SSIM, MS-SSIM, ssim_global (1e-4) and LPIPS (1e-4 relative)
+   of each interpolated frame on the card against the same functions with
+   device="cpu"; canny (two threshold pairs, with its iteration count) and
+   the UI mask of two frames equal on both; K1 against its twin and its
+   origins at every recorded launch. Prints ms per 1080p frame of each
+   metric and of compute_optical_flow (evaluation/speed.py's measure: CUDA
+   events), the whole sequence's evaluation and peak memory, the LPIPS
+   AlexNet's conv lines (time_convs), and K1 per launch shape as in step 7;
+18. runs the port's bench, vfisr_tpu_torch.bench.measure at its defaults
+   (5 + 50 pairs of fused_stream_step 1080p -> 1440p, CUDA events per
+   pair): once with every K1 launch held against its twin and its origins
+   as it goes, then counted with ``window_origins`` raising (18 K1
+   launches per pair). Prints its record on an earlier line; requires a
+   finite, positive value, 3000 / the median ms per pair.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
 it (K1: the flagship pairs, the flagship stream, the RIFE train steps, the
-adaptive sequence, the adaptive stream, the SAFA pairs and the SAFA train
-steps; K2: the RIFE and the SAFA train steps) and the device time, bound,
-plain-twin and grid_sample time of exactly those launches (a stream's
-launches at their shapes' times from steps 7 and 9). The last line is {"ok": true, "device": {...}}.
+adaptive sequence, the adaptive stream, the SAFA pairs, the SAFA train
+steps, the evaluation and the bench; K2: the RIFE and the SAFA train steps)
+and the device time, bound, plain-twin and grid_sample time of exactly
+those launches (a stream's and the bench's launches at their shapes' times
+from steps 7 and 9). The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -182,6 +209,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -2018,6 +2046,247 @@ def train_span_phase(kw) -> None:
         _phase(f"train_{name}", t0)
 
 
+# the evaluation phase: the evaluation library (vfisr_tpu_torch/evaluation/)
+# on EVAL_FRAMES frames of step 4's 1080p scene, the odd ones interpolated
+EVAL_FRAMES = 7
+# Farneback at 1080p: 4 pyramid levels (3 halvings; the smallest side stays
+# >= 16 px) x 3 warps per level (one per matrix update)
+K1_PER_FLOW = 12
+# flows of the phase's counted run: FloLPIPS one per ground-truth pair; the
+# comprehensive benchmark two per predicted pair (temporal) and one per
+# ground-truth pair (stratified)
+FLOWS_PER_PAIR = 4
+EVAL_TIMED = 5  # calls per timed metric, after one warm-up call
+
+
+def evaluation_phase(kw) -> dict:
+    """Step 17 of the module docstring. Returns K1's numbers over the
+    phase's counted launches."""
+    from vfisr_tpu_torch.core.frames import to_uint8
+    from vfisr_tpu_torch.evaluation import lpips as tl, metrics as tm, speed
+    from vfisr_tpu_torch.models.registry import get_model
+    from vfisr_tpu_torch.ops import edges
+    from vfisr_tpu_torch.ops.ssim import ms_ssim
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    files = {"rife_weights": ROOT / "weights" / "rife.npz",
+             "vfimamba_weights": ROOT / "weights" / "vfimamba.npz",
+             "gate_path": ROOT / "weights" / "router_gate.json"}
+    model = get_model("adaptive", device="cuda", load=True, **{k: str(p) for k, p in files.items()})
+    gt_dev = [game_frame(i, dev) for i in range(EVAL_FRAMES)]
+    gt = [f.cpu().numpy() for f in gt_dev]
+    pred = list(gt)
+    for i in range(1, EVAL_FRAMES, 2):
+        mid = model.interpolate_batch(gt_dev[i - 1].float()[None] / 255.0,
+                                      gt_dev[i + 1].float()[None] / 255.0, (0.5,))
+        pred[i] = to_uint8(mid[0, 0]).cpu().numpy()
+    del model
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    qe = tm.QualityEvaluator("cuda")
+    require(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32),
+            "QualityEvaluator turns TF32 off")
+    require(qe.lpips_mode == "calibrated_heads", f"LPIPS mode {qe.lpips_mode}")
+    t0 = _phase("evaluation_setup", t0)
+
+    # the library on the card, counted, every K1 launch recorded
+    recorded, real_warp = [], kw.warp_windowed
+    kw.warp_windowed = _recording(kw, recorded)
+    try:
+        with origin_table_raises(kw):
+            kw.launches = 0
+            quality = qe.evaluate(pred, gt)
+            flolpips = qe.evaluate_flolpips(pred, gt)
+            temporal = qe.evaluate_temporal_consistency(pred)
+            bench = tm.run_comprehensive_benchmark(pred, gt, verbose=False, device="cuda")
+            ui = [tm.detect_ui_regions(f, "cuda") for f in (gt[0], pred[1])]
+            launches = kw.launches
+    finally:
+        kw.warp_windowed = real_warp
+    want = K1_PER_FLOW * FLOWS_PER_PAIR * (EVAL_FRAMES - 1)
+    require(launches == len(recorded) == want, f"{launches} K1 launches in the evaluation "
+                                               f"({want} expected)")
+    require_whole_c(kw, "evaluation", recorded)
+    t0 = _phase("evaluation_run", t0)
+    res = bench.to_dict()
+    print(f"evaluation quality (QualityEvaluator.evaluate, {EVAL_FRAMES} frames, 3 interpolated "
+          f"by get_model('adaptive')): {quality.to_dict()}, psnr per frame "
+          f"{quality.psnr_per_frame}, lpips per frame {quality.lpips_per_frame}")
+    print(f"evaluation flolpips {flolpips}, temporal {temporal}")
+    print(f"evaluation run_comprehensive_benchmark: {json.dumps(res)}")
+    mids = quality.psnr_per_frame[1::2]
+    require(all(math.isinf(p) for p in quality.psnr_per_frame[::2])
+            and all(math.isfinite(p) and p > 20.0 for p in mids), "PSNR per frame")
+    numbers = [quality.ssim, quality.lpips, quality.ms_ssim, flolpips, *temporal.values(),
+               res["reconstruction"]["ssim"], *res["temporal"].values(), *res["gaming"].values()]
+    require(all(math.isfinite(v) for v in numbers), "finite metrics")
+    require(0.0 < quality.ssim <= 1.0 and 0.0 < quality.ms_ssim <= 1.0 and quality.lpips >= 0.0,
+            "metrics in range")
+    require(res["total_frames"] == EVAL_FRAMES and sum(res["stratified"]["frame_counts"].values())
+            == EVAL_FRAMES - 1, "comprehensive benchmark frame counts")
+    require(all(m.dtype == np.uint8 and m.shape == (H, W) and m[: H // 6, : W // 5].any()
+                for m in ui), "the UI masks cover the HUD box")
+
+    # each metric that takes no flow against the same function on the CPU
+    for i in range(1, EVAL_FRAMES, 2):
+        p, g = pred[i], gt[i]
+        d_psnr = abs(tm.compute_psnr_simple(p, g, "cuda") - tm.compute_psnr_simple(p, g, "cpu"))
+        d_ssim = abs(tm.compute_ssim_simple(p, g, "cuda") - tm.compute_ssim_simple(p, g, "cpu"))
+        d_glob = abs(tm.calc_ssim(p, g, "cuda") - tm.calc_ssim(p, g, "cpu"))
+        d_ms = abs(float(ms_ssim(tm._gray(p, "cuda"), tm._gray(g, "cuda")))
+                   - float(ms_ssim(tm._gray(p, "cpu"), tm._gray(g, "cpu"))))
+        l_card, l_cpu = float(qe._lpips(p, g)[0]), float(tl.default_lpips("cpu")(p, g)[0])
+        d_lpips = abs(l_card - l_cpu) / abs(l_cpu)
+        print(f"evaluation frame {i} card vs cpu: psnr {d_psnr:.3e} dB (tolerance 1e-3), ssim "
+              f"{d_ssim:.3e}, ms_ssim {d_ms:.3e}, ssim_global {d_glob:.3e} (1e-4 each), lpips "
+              f"{d_lpips:.3e} relative (1e-4)")
+        require(d_psnr <= 1e-3 and max(d_ssim, d_ms, d_glob) <= 1e-4 and d_lpips <= 1e-4,
+                f"evaluation frame {i}, card vs cpu")
+    iters = {}
+    for name, f in (("hud frame 0", gt[0]), ("interpolated frame 1", pred[1])):
+        gray_card, gray_cpu = tm._gray(f, "cuda"), tm._gray(f, "cpu")
+        for lo, hi in ((100, 200), (50, 150)):
+            e_card, n_card = edges.canny_with_iterations(gray_card, lo, hi)
+            e_cpu, n_cpu = edges.canny_with_iterations(gray_cpu, lo, hi)
+            require(torch.equal(e_card.cpu(), e_cpu) and n_card == n_cpu,
+                    f"canny({lo}, {hi}) of {name}, card vs cpu")
+            iters[(name, lo, hi)] = n_card
+            print(f"evaluation canny({lo}, {hi}) of {name}: {int(e_card.count_nonzero())} edge "
+                  f"pixels, hysteresis {n_card} iterations (the card's equal the cpu's)")
+        require(np.array_equal(tm.detect_ui_regions(f, "cuda"), tm.detect_ui_regions(f, "cpu")),
+                f"UI mask of {name}, card vs cpu")
+    t0 = _phase("evaluation_cpu_checks", t0)
+
+    # K1 against its twin, and the kernels' origins, at every launch
+    max_err = 0.0
+    for j, a in enumerate(recorded):
+        check_origins(kw, f"evaluation launch {j}", a)
+        max_err = max(max_err, check_warp(kw, f"evaluation launch {j}", a))
+    t0 = _phase("evaluation_kernel_checks", t0)
+
+    # ms per 1080p frame (speed.measure: CUDA events around each call, after
+    # a warm-up call; each call uploads its frames and reads its value back)
+    p, g = pred[1], gt[1]
+    flow = tm.compute_optical_flow(gt[0], gt[1], "cuda")
+    mag = np.sqrt(flow[..., 0] ** 2 + flow[..., 1] ** 2)
+    lp = qe._lpips
+    timed = {
+        "compute_psnr_simple": lambda: tm.compute_psnr_simple(p, g, "cuda"),
+        "compute_ssim_simple": lambda: tm.compute_ssim_simple(p, g, "cuda"),
+        "calc_ssim (ssim_global)": lambda: tm.calc_ssim(p, g, "cuda"),
+        "ms_ssim (gray, 5 scales)": lambda: float(ms_ssim(tm._gray(p, "cuda"), tm._gray(g, "cuda"))),
+        "lpips": lambda: lp(p, g),
+        "lpips.flow_weighted (FloLPIPS, flow given)": lambda: lp.flow_weighted(p, g, mag),
+        "compute_optical_flow (Farneback, full resolution)":
+            lambda: tm.compute_optical_flow(gt[0], gt[1], "cuda"),
+        "compute_flow_consistency (one pair of flows)":
+            lambda: tm.compute_flow_consistency([flow], [flow], "cuda"),
+        "canny(100, 200) (gray upload included)":
+            lambda: edges.canny(tm._gray(gt[0], "cuda"), 100, 200).cpu(),
+        "detect_ui_regions": lambda: tm.detect_ui_regions(gt[0], "cuda"),
+        "QualityEvaluator.evaluate_pair": lambda: qe.evaluate_pair(p, g),
+    }
+    for name, fn in timed.items():
+        s = speed.measure(fn, iterations=EVAL_TIMED, warmup=1, device="cuda")
+        require(s.method == "cuda_events", f"speed.measure's method on the card: {s.method}")
+        print(f"evaluation ms per {W}x{H} frame, {name}: p50 {s.p50_ms:.3f}, mean "
+              f"{s.mean_ms:.3f}, min {s.min_ms:.3f}, max {s.max_ms:.3f} ({s.n_iterations} calls)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    start = time.perf_counter()
+    qe.evaluate(pred, gt)
+    evaluate_s = time.perf_counter() - start
+    start = time.perf_counter()
+    tm.run_comprehensive_benchmark(pred, gt, verbose=False, device="cuda")
+    comprehensive_s = time.perf_counter() - start
+    peak = (torch.cuda.max_memory_allocated() - resident) / 1e6
+    print(f"evaluation whole sequence ({EVAL_FRAMES} frames {W}x{H}, host clock): "
+          f"QualityEvaluator.evaluate {evaluate_s * 1e3:.3f} ms ({evaluate_s * 1e3 / EVAL_FRAMES:.3f}"
+          f" per frame), run_comprehensive_benchmark {comprehensive_s * 1e3:.3f} ms "
+          f"({comprehensive_s * 1e3 / EVAL_FRAMES:.3f} per frame); peak {peak:.1f} MB over "
+          f"{resident / 1e6:.1f} MB resident")
+    # the five AlexNet convs at the phase's shapes (a and b in one batch)
+    time_convs("evaluation lpips", conv_calls(lp.net, lambda: lp(p, g)))
+    t0 = _phase("evaluation_timing", t0)
+
+    by_shape = shape_times(kw, recorded, time_launch)
+    for key, v in by_shape.items():
+        print(f"evaluation launch shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} "
+              f"r={key[3]} {key[4]} x{v['n']}/phase: kernel {v['kernel']:.4f} ms, bound "
+              f"{v['bound']:.4f} ms ({v['by']}), wrapper host {v['host']:.4f} ms, wrapper "
+              f"{v['wrapper']:.4f} ms, plain {v['plain']:.4f} ms, grid_sample {v['library']:.4f} ms")
+    fields = ("kernel", "bound", "host", "wrapper", "plain", "library")
+    total = {f: sum(v["n"] * v[f] for v in by_shape.values()) for f in fields}
+    total["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
+    print(f"evaluation K1: {launches} launches ({K1_PER_FLOW} per flow), " + ", ".join(
+        f"{f} {total[f]:.4f} ms" for f in fields) + f"; max_abs_err {max_err:.3e}")
+    _phase("evaluation_k1_timing", t0)
+    return path_numbers(launches, max_err, total, 1)
+
+
+def _checking(kw, checks: list):
+    """K1's wrapper, holding each launch against its plain twin and its
+    origins against window_origins as it goes (no copies kept): appends
+    (error, tolerance, origins differ) as device tensors."""
+    real = kw.warp_windowed
+
+    def checking(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
+        out = real(img, flow, t, r, border, compute_dtype)
+        ref = kw.warp_windowed_plain(img, flow, t, r, border, compute_dtype)
+        base = 2.0 / 255.0 if compute_dtype == torch.bfloat16 else 1e-5
+        ry, rx = (r, r) if isinstance(r, int) else r
+        t_arr = torch.as_tensor(t, dtype=torch.float32, device=flow.device)
+        t_arr = t_arr.reshape(-1).expand(flow.shape[0]).contiguous()
+        got = kw.kernel_origins(flow, t, r, compute_dtype)
+        want = ORIGIN_TABLE(flow, t_arr, ry, rx, compute_dtype == torch.bfloat16)
+        differ = (got != want).any() if got.shape == want.shape else torch.ones((), dtype=torch.bool)
+        checks.append(((out.float() - ref.float()).abs().max(),
+                       base * torch.clamp(ref.float().abs().max(), min=1.0), differ))
+        return out
+
+    return checking
+
+
+def bench_phase(kw, per_pair: dict) -> dict:
+    """Step 18 of the module docstring. Returns K1's numbers over the
+    bench's counted launches, timed per pair in step 7."""
+    from vfisr_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    pairs = bench.WARMUP + bench.PAIRS
+    # the same run with every launch checked as it goes (its times include
+    # the twins: not the bench's)
+    checks, real_warp = [], kw.warp_windowed
+    kw.warp_windowed = _checking(kw, checks)
+    try:
+        print("bench check run (every K1 launch against its twin and its origins; its times "
+              "include the twins):")
+        bench.measure()
+    finally:
+        kw.warp_windowed = real_warp
+    err, tol, differ = (torch.stack(v) for v in zip(*checks))
+    max_err = err.max().item()
+    require(len(checks) == LAUNCHES_PER_PAIR * pairs, f"{len(checks)} K1 launches checked")
+    require(bool((err <= tol).all()) and not bool(differ.any()),
+            f"bench: K1 vs twin and origins at every launch (max_abs_err {max_err:.3e})")
+    print(f"bench check run: {len(checks)} K1 launches, each within its tolerance of the twin "
+          f"(max_abs_err {max_err:.3e}) with its origins equal to window_origins")
+    t0 = _phase("bench_check", t0)
+
+    with origin_table_raises(kw):
+        kw.launches = 0
+        record = bench.measure()
+        launches = kw.launches
+    print("bench record: " + json.dumps(record))
+    require(math.isfinite(record["value"]) and record["value"] > 0, f"bench value {record}")
+    require(launches == LAUNCHES_PER_PAIR * pairs, f"{launches} K1 launches in {pairs} bench pairs")
+    require(record["value"] == len(TS) * 1000.0 / record["ms_per_pair_p50"]
+            and record["pairs"] == bench.PAIRS, "the record's value is 3000 / the median")
+    _phase("bench_run", t0)
+    return path_numbers(launches, max_err, per_pair, pairs)
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2199,12 +2468,15 @@ def main() -> int:
     span_phase(kw)
     k1_safa_train, k2_safa_train = train_safa_phase(kw)
     train_span_phase(kw)
+    k1_evaluation = evaluation_phase(kw)
+    k1_bench = bench_phase(kw, totals)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
     print(json.dumps({"kernels": [
         kernel_entry("warp_windowed", [k1_flagship, k1_stream_flagship, k1_train, k1_adaptive,
-                                       k1_stream_adaptive, k1_safa, k1_safa_train]),
+                                       k1_stream_adaptive, k1_safa, k1_safa_train, k1_evaluation,
+                                       k1_bench]),
         kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@
 - TF32: every model's ``load`` turns cuDNN's and matmul's TF32 off, so f32
   configs keep the reference's f32 arithmetic on the card. ``rife`` and
   ``rife_lite`` (``RIFEModel.load``) and the traditional baselines
-  (``_Traditional.load``) once left them as they found them.
+  (``_Traditional.load``) once left them as they found them;
+  ``FlagshipVFI.load`` (``flagship``) turned them off with no test to hold
+  it.
 - ``core/frames.py::pad_to_multiple`` reflects as ``jnp.pad(mode="reflect")``
   does, also where a pad is as wide as the side (``F.pad`` refuses that).
 
@@ -27,7 +29,8 @@ def tf32_flags():
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-@pytest.mark.parametrize("name", ["rife", "rife_lite", "optical_flow", "bicubic", "lanczos"])
+@pytest.mark.parametrize("name", ["rife", "rife_lite", "optical_flow", "bicubic", "lanczos",
+                                  "flagship"])
 def test_load_turns_tf32_off(name, tf32_flags):
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     get_model(name, device="cpu", load=True)

@@ -18,6 +18,16 @@ def rgb_to_gray(x: torch.Tensor) -> torch.Tensor:
     return g.to(x.dtype)
 
 
+def bgr_to_gray(x: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, 3] BGR -> gray."""
+    return rgb_to_gray(rgb_to_bgr(x))
+
+
+def rgb_to_bgr(x: torch.Tensor) -> torch.Tensor:
+    """Swap the channel order (self-inverse)."""
+    return x.flip(-1)
+
+
 # I420 (4:2:0 planar YUV), ITU-R BT.601 video range: the layout of a Y4M
 # frame, and of the streaming pipeline's device-side readback
 

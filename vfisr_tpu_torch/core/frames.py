@@ -19,6 +19,20 @@ def to_float(frame, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return torch.as_tensor(frame).to(dtype) / 255.0
 
 
+def to_device(x, device="cuda") -> torch.Tensor:
+    """A numpy array (any strides) or a tensor -> a tensor on ``device``;
+    float64 narrows to float32, as ``jnp.asarray`` narrows it in the JAX
+    package (64-bit mode off)."""
+    if torch.is_tensor(x):
+        t = x
+    else:
+        arr = np.ascontiguousarray(x)
+        t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    if t.dtype == torch.float64:
+        t = t.float()
+    return t.to(device)
+
+
 def to_uint8(frame: torch.Tensor) -> torch.Tensor:
     """float [0, 1] -> uint8 [0, 255]: ``floor(x*255 + 0.5)`` clipped
     (round half up, OpenCV ``saturate_cast`` behaviour)."""

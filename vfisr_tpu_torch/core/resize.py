@@ -124,3 +124,16 @@ def resize(x: torch.Tensor, size: Tuple[int, int], method: str = "lanczos4") -> 
 def scale_size(h: int, w: int, scale: float) -> Tuple[int, int]:
     """Reference size math: ``int(h*scale), int(w*scale)``."""
     return int(h * scale), int(w * scale)
+
+
+def crop_16_9(x: torch.Tensor) -> torch.Tensor:
+    """Centre-crop [..., H, W, C] to 16:9: the width to int(H*16/9) where
+    that fits, else the height to int(W*9/16) (a view)."""
+    h, w = x.shape[-3], x.shape[-2]
+    target_w = int(h * 16 / 9)
+    if target_w <= w:
+        x0 = (w - target_w) // 2
+        return x[..., x0:x0 + target_w, :]
+    target_h = int(w * 9 / 16)
+    y0 = (h - target_h) // 2
+    return x[..., y0:y0 + target_h, :, :]

@@ -93,6 +93,11 @@ CUDNN_WINS = frozenset({
     (176, 176, 3, 16, 48, 48),  # SAFA's 176->176 convs, training: 1.038 against 1.857 ms
     (192, 48, 1, 16, 96, 96),  # SPAN x2's conv_cat, training: 0.188 against 0.310 ms
     (192, 48, 1, 16, 48, 48),  # SPAN x4's conv_cat, training: 0.072 against 0.250 ms
+    # LPIPS's AlexNet conv4 and conv5 on a 1080p pair (evaluation/lpips.py),
+    # chip_smoke.py's evaluation phase: 0.700 against 0.886 ms, 0.490
+    # against 0.594 ms
+    (384, 256, 3, 2, 66, 119),
+    (256, 256, 3, 2, 66, 119),
 })
 
 
@@ -111,7 +116,8 @@ def planned_conv(conv: torch.nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     training flow*_a, dec_a and dec_c; SPAN's conv_cat at 1080p), and a
     shape never measured takes PyTorch's own convolution too: where that
     lost, it lost by 3.5x at most (0.25 ms), where cuDNN's plan lost by up
-    to 190x (361 ms)."""
+    to 190x (361 ms); LPIPS's conv2 on a 1080p pair, 9.5 against 1.2 ms and
+    a 6.6 GB workspace (an H100 80GB HBM3 at 700 W)."""
     if cudnn_wins(conv, x.shape):
         return conv(x)
     with without_cudnn():

@@ -73,6 +73,19 @@ def box_filter(x: torch.Tensor, ksize: int, border: str = "reflect") -> torch.Te
     return sep_filter2d(x, k, k, border=border)
 
 
+_SOBEL_SMOOTH = np.array([1.0, 2.0, 1.0], np.float32)
+_SOBEL_DIFF = np.array([-1.0, 0.0, 1.0], np.float32)
+
+
+def sobel(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """cv2.Sobel 3x3: axis 'x' -> d/dx, 'y' -> d/dy."""
+    if axis == "x":
+        return sep_filter2d(x, _SOBEL_DIFF, _SOBEL_SMOOTH)
+    if axis == "y":
+        return sep_filter2d(x, _SOBEL_SMOOTH, _SOBEL_DIFF)
+    raise ValueError("axis must be 'x' or 'y'")
+
+
 _LAPLACIAN_K1 = np.array([[0, 1, 0], [1, -4, 1], [0, 1, 0]], np.float32)
 
 

@@ -1,5 +1,5 @@
 """Dense optical flow."""
 
-from vfisr_tpu_torch.ops.flow.farneback import farneback_flow
+from vfisr_tpu_torch.ops.flow.farneback import farneback_flow, flow_magnitude
 
-__all__ = ["farneback_flow"]
+__all__ = ["farneback_flow", "flow_magnitude"]

@@ -154,3 +154,8 @@ def farneback_flow(f0: torch.Tensor, f1: torch.Tensor, pyr_scale: float = 0.5,
             if i < iterations - 1:
                 M = _update_matrices(R0, R1, flow)
     return flow[0] if squeeze else flow
+
+
+def flow_magnitude(flow: torch.Tensor) -> torch.Tensor:
+    """The per-pixel norm of a flow: [..., 2] -> [...]."""
+    return torch.sqrt(flow[..., 0] ** 2 + flow[..., 1] ** 2)
