@@ -185,13 +185,56 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    pair): once with every K1 launch held against its twin and its origins
    as it goes, then counted with ``window_origins`` raising (18 K1
    launches per pair). Prints its record on an earlier line; requires a
-   finite, positive value, 3000 / the median ms per pair.
+   finite, positive value, 3000 / the median ms per pair;
+19. runs the experiment sweep (harness/experiments.py, harness/device_sweep.py)
+   on an interval made on the card: 11 keyframes of step 9's 1920x1080 scene
+   (plane waves under a static HUD) panning SWEEP_PANS px per pair, their 10
+   true midpoints, written as PNG (data/png.py) into a temporary
+   clips/<id>/intervals/interval_0000/{keyframes,midpoints} with a
+   meta.json and read back bit-equal by load_interval. The pans are chosen
+   from weights/router_gate.json's 'sweep' bins. run_experiment_sweep over
+   all 19 experiments at the default quality (2560x1440, 90 fps) with LPIPS
+   (calibrated heads), full-width RIFE f32 (weights/rife.npz) and VFIMamba
+   (weights/vfimamba.npz): once with every K1 launch held against its twin
+   and its origins as it goes (the bench's _checking), then counted with
+   ``window_origins`` raising and timed. Checks: 19 rows, none FAILED, 41
+   frames each, 10 VFI frames evaluated and 1 LPIPS sample where VFI is
+   evaluated, K1 launched by every method with a flow or RIFE and by no
+   blend; each adaptive tier's expert_mix and rife_frames_pct equal to its
+   threshold rule on the pairs' motions recomputed with _motion_chunk, and
+   to bin_winner('sweep', ...) among rife, rife_fast and vfimamba for the
+   quality-aware tier; adaptive_default both blends and takes RIFE, and
+   adaptive_aggressive takes every expert the gate can give; on the first 5
+   keyframes, run_experiment_batched against the per-frame run_experiment
+   on the card for 8 experiments within the reference's tolerances (0.35
+   dB / 0.01 SSIM for the blends, 1.0 dB for optical flow, 1.5 dB / 0.02 for
+   UAFI, UGHI and MCAR), their K1 launches checked; a write_videos run of
+   lanczos_blend_edge whose Y4M reads back as 41 frames at 2560x1440; ``python
+   -m vfisr_tpu_torch.run_experiments`` as a subprocess (lanczos_blend_edge and
+   rife_fast on 3 keyframes, on the card by default) writing its 2 rows.
+   Prints per experiment time_s, fps_achieved, realtime_x, the PSNR, SSIM
+   and LPIPS fields, expert_mix and its K1 launches per shape; the sweep's
+   time and peak memory; RIFE per chunk at native scales 1.0 and 0.5; one
+   _chunk_program per method (CUDA events); K1 per launch shape as in step
+   7;
+20. runs the triplet benchmark (harness/triplet.py) on a temporary
+   processed clip: 5 input frames of step 9's scene at 1920x1080 panning 4
+   px per frame, ground truth rendered at 2560x1440 at t = 0.25/0.5/0.75
+   (3 per triplet), metadata.json with spatial_scale 1.3333, 4 triplets.
+   run_benchmarks(models="lanczos,rife,adaptive,safa", warmup=1) once with
+   every K1 launch (whole-C and grouped) checked as it goes, then counted
+   with ``window_origins`` raising. Checks: no error row, 4 triplets per
+   model, finite quality. Prints per model PSNR, SSIM, LPIPS, time_ms mean
+   and p50, throughput_fps and vram_mb; then ``python -m
+   vfisr_tpu_torch.benchmark -m lanczos --max-triplets 2`` as a subprocess,
+   and a ``--merge`` run of bicubic that keeps its row; K1 per launch shape.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
 it (K1: the flagship pairs, the flagship stream, the RIFE train steps, the
 adaptive sequence, the adaptive stream, the SAFA pairs, the SAFA train
-steps, the evaluation and the bench; K2: the RIFE and the SAFA train steps)
+steps, the evaluation, the bench, the sweep and the triplet benchmark; K2:
+the RIFE and the SAFA train steps)
 and the device time, bound, plain-twin and grid_sample time of exactly
 those launches (a stream's and the bench's launches at their shapes' times
 from steps 7 and 9). The last line is {"ok": true, "device": {...}}.
@@ -289,12 +332,14 @@ def game_frame(t: float, device, h: int = H, w: int = W, step: int = STEP_PX) ->
     return torch.clamp(torch.floor(f * 255.0 + 0.5), 0, 255).to(torch.uint8)
 
 
-def scene_frame(x, device, h: int = H, w: int = W, waves: int = 24) -> torch.Tensor:
+def scene_frame(x, device, h: int = H, w: int = W, waves: int = 24,
+                scale: float = 1.0) -> torch.Tensor:
     """[h,w,3] uint8 frame of the adaptive phase's sequence: for a number x,
     a texture of seeded random plane waves (wavelengths 8-64 px) moved
     right by x px; for "cut", another scene (seeded random 2x2 px blocks at
     1920 wide, which no flow maps onto the first). A static HUD box top
-    left in both."""
+    left in both. scale renders the same scene on a raster scale times
+    finer (x stays in the unscaled raster's pixels)."""
     if x == "cut":
         gen = torch.Generator(device="cpu").manual_seed(1)
         blk = max(1, w // 960)
@@ -311,7 +356,7 @@ def scene_frame(x, device, h: int = H, w: int = W, waves: int = 24) -> torch.Ten
                                 torch.arange(w, device=device, dtype=torch.float32), indexing="ij")
         f = torch.full((h, w, 3), 0.5, device=device)
         for i in range(waves):
-            arg = kx[i] * (xx - x) + ky[i] * yy
+            arg = kx[i] * (xx / scale - x) + ky[i] * (yy / scale)
             for c in range(3):
                 f[..., c] += amp[i][c] * torch.sin(arg + phase[i][c])
     f[: h // 6, : w // 5] = torch.tensor([0.9, 0.9, 0.1], device=device)
@@ -394,13 +439,14 @@ def grid_sample_grad_call(a: dict):
 
 
 def grid_sample_call(a: dict):
-    """torch's bilinear grid_sample (border padding, align_corners=True) on
-    the same warp: the library yardstick. Inputs are prepared outside the
-    returned call."""
+    """torch's bilinear grid_sample (align_corners=True; border padding for
+    the replicate border, zeros for the constant one) on the same warp: the
+    library yardstick. Inputs are prepared outside the returned call."""
     grid = _grid(a)
     inp = a["img"].permute(0, 3, 1, 2).contiguous()
+    pad = "zeros" if a["border"] == "constant" else "border"
     return lambda: torch.nn.functional.grid_sample(inp, grid, mode="bilinear",
-                                                   padding_mode="border", align_corners=True)
+                                                   padding_mode=pad, align_corners=True)
 
 
 def host_ms(fn, iters: int = 20) -> float:
@@ -2287,6 +2333,445 @@ def bench_phase(kw, per_pair: dict) -> dict:
     return path_numbers(launches, max_err, per_pair, pairs)
 
 
+# the sweep phase: run_experiment_sweep on an interval of SWEEP_PANS pairs of
+# the adaptive phase's 1080p scene (plane waves under a static HUD), at the
+# default quality (2560x1440, 90 fps). The pans (px per pair at 1080p) are
+# chosen from weights/router_gate.json's 'sweep' bins: at the 480x270 motion
+# (about a quarter of the 1080p pan) a static pair is blended by every
+# adaptive tier, 2 px pans (motion ~0.5) go to RIFE in the quality-aware
+# tier, 8 px (~2.0) to VFIMamba there, and 16 px (~3.8) past
+# adaptive_default's threshold of 3 to RIFE (VFIMamba in the quality-aware
+# tier).
+SWEEP_PANS = (0, 2, 16, 2, 2, 0, 8, 2, 2, 2)
+SWEEP_CLIP = "chip_smoke"
+SWEEP_COMPARE_KF = 5  # keyframes of the batched vs per-frame comparison
+# the reference's tolerances of its batched path against its per-frame loop
+# (tests/test_device_sweep.py): (PSNR dB, SSIM)
+SWEEP_COMPARE = {"control": (0.35, 0.01), "degraded": (0.35, 0.01),
+                 "lanczos_blend": (0.35, 0.01), "lanczos_blend_edge": (0.35, 0.01),
+                 "optical_flow_basic": (1.0, None), "uafi_default": (1.5, 0.02),
+                 "ughi_default": (1.5, 0.02), "mcar_default": (1.5, 0.02)}
+# methods without K1 in the batched path (no flow, no RIFE)
+SWEEP_NO_K1 = ("none", "frame_dup", "linear_blend")
+
+
+def _shape_counter(kw, firsts: dict, counts: dict, tag: dict):
+    """K1's wrapper counting each launch by (tag["name"], shape) and keeping
+    a clone of the first launch of each shape (for the per-shape timing)."""
+    real = kw.warp_windowed
+
+    def counting(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
+        a = dict(img=img, flow=flow, t=t, r=r, border=border, compute_dtype=compute_dtype)
+        key = shape_key(a)
+        if key not in firsts:
+            firsts[key] = dict(a, img=img.clone(), flow=flow.clone(),
+                               t=t.clone() if torch.is_tensor(t) else t)
+        counts[(tag["name"], key)] = counts.get((tag["name"], key), 0) + 1
+        return real(img, flow, t, r, border, compute_dtype)
+
+    return counting
+
+
+def _require_checks(checks: list, label: str) -> float:
+    """Every launch of a _checking run within its tolerance of the twin,
+    with its origins equal to window_origins; returns the largest error."""
+    require(len(checks) > 0, f"{label}: K1 launches checked")
+    err, tol, differ = (torch.stack(v) for v in zip(*checks))
+    max_err = err.max().item()
+    require(bool((err <= tol).all()) and not bool(differ.any()),
+            f"{label}: K1 vs twin and origins at every launch (max_abs_err {max_err:.3e})")
+    print(f"{label}: {len(checks)} K1 launches, each within its tolerance of the twin "
+          f"(max_abs_err {max_err:.3e}) with its origins equal to window_origins")
+    return max_err
+
+
+def _k1_by_shape(kw, label: str, unit: str, firsts: dict, counts: dict) -> dict:
+    """K1's per-shape lines of a counted run, and the run's totals."""
+    by_shape = {}
+    for (_, key), n in counts.items():
+        if key not in by_shape:
+            by_shape[key] = dict(n=0, **time_launch(kw, firsts[key]))
+        by_shape[key]["n"] += n
+    for key, v in by_shape.items():
+        print(f"{label} launch shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} "
+              f"r={key[3]} {key[4]} x{v['n']}/{unit}: kernel {v['kernel']:.4f} ms, bound "
+              f"{v['bound']:.4f} ms ({v['by']}), wrapper host {v['host']:.4f} ms, wrapper "
+              f"{v['wrapper']:.4f} ms, plain {v['plain']:.4f} ms, grid_sample "
+              f"{v['library']:.4f} ms")
+        print_grouped(kw, label, unit, key, firsts[key], v, grad=False)
+    fields = ("kernel", "bound", "host", "wrapper", "plain", "library")
+    total = {f: sum(v["n"] * v[f] for v in by_shape.values()) for f in fields}
+    total["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
+    print(f"{label} K1: {sum(v['n'] for v in by_shape.values())} launches in "
+          f"{len(by_shape)} shapes, " + ", ".join(f"{f} {total[f]:.4f} ms" for f in fields))
+    return total
+
+
+def sweep_phase(kw, card: str) -> dict:
+    """Step 19 of the module docstring. Returns K1's numbers over the
+    counted sweep's launches."""
+    from vfisr_tpu_torch.core.resize import resize
+    from vfisr_tpu_torch.data.extract_intervals import load_interval
+    from vfisr_tpu_torch.data.png import write_png
+    from vfisr_tpu_torch.data.video_io import VideoReader
+    from vfisr_tpu_torch.harness import device_sweep as ds, experiments as ex
+    from vfisr_tpu_torch.methods.inline import edge_enhance_core
+    from vfisr_tpu_torch.utils.router_gate import bin_winner, blend_crossover_px, expert_bins
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    xs = [0.0]
+    for p in SWEEP_PANS:
+        xs.append(xs[-1] + p)
+    n_pairs = len(SWEEP_PANS)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_")
+    root = Path(tmp.name)
+    try:
+        # the interval, made on the card and written as PNG
+        kf_dev = [scene_frame(x, dev) for x in xs]
+        mid_dev = [scene_frame((a + b) / 2, dev) for a, b in zip(xs[:-1], xs[1:])]
+        kfs = [f.cpu().numpy() for f in kf_dev]
+        mids = [f.cpu().numpy() for f in mid_dev]
+        idir = root / "data" / "clips" / SWEEP_CLIP / "intervals" / "interval_0000"
+        for sub, frames, stem in (("keyframes", kfs, "kf"), ("midpoints", mids, "gt")):
+            (idir / sub).mkdir(parents=True)
+            for i, f in enumerate(frames):
+                write_png(idir / sub / f"{stem}_{i:04d}.png", f)
+        (idir / "meta.json").write_text(json.dumps({
+            "interval_id": "interval_0000", "clip_id": SWEEP_CLIP, "keyframe_count": len(kfs),
+            "midpoint_count": len(mids), "resolution": f"{W}x{H}", "difficulty": "EASY"}))
+        rk, rm, meta = load_interval(SWEEP_CLIP, 0, root / "data")
+        require(len(rk) == len(kfs) and len(rm) == len(mids)
+                and all(np.array_equal(a, b) for a, b in zip(rk + rm, kfs + mids))
+                and meta["clip_id"] == SWEEP_CLIP, "load_interval reads the PNGs back bit-equal")
+        t0 = _phase("sweep_interval", t0)
+
+        exps = ex.EXPERIMENTS
+        out_w, out_h = ex.QUALITY_LEVELS[ex.DEFAULT_QUALITY]["resolution"]
+        out_hw = (out_h, out_w)
+        kwargs = dict(data_dir=root / "data", use_lpips=True, device="cuda")
+        tag = {"name": None}
+        real_batched = ds.run_experiment_batched
+
+        def tagged(interval, experiment, **kw_):
+            tag["name"] = experiment["name"]
+            return real_batched(interval, experiment, **kw_)
+
+        # 1. the sweep with every K1 launch checked as it goes (its times
+        # include the twins: not the sweep's)
+        checks, real_warp = [], kw.warp_windowed
+        kw.warp_windowed = _checking(kw, checks)
+        try:
+            print("sweep check run (every K1 launch against its twin and its origins):")
+            res = ex.run_experiment_sweep(SWEEP_CLIP, [0], exps, output_dir=root / "check",
+                                          **kwargs)
+        finally:
+            kw.warp_windowed = real_warp
+        require(len(res["experiments"]) == len(exps), "the check run's rows")
+        max_err = _require_checks(checks, "sweep check run")
+        del checks
+        t0 = _phase("sweep_check_run", t0)
+
+        # 2. the sweep, counted (window_origins raising), timed: the main path
+        firsts, counts = {}, {}
+        kw.warp_windowed = _shape_counter(kw, firsts, counts, tag)
+        ds.run_experiment_batched = tagged
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        try:
+            with origin_table_raises(kw):
+                kw.launches = 0
+                start = time.perf_counter()
+                res = ex.run_experiment_sweep(SWEEP_CLIP, [0], exps, output_dir=root / "out",
+                                              **kwargs)
+                torch.cuda.synchronize()
+                sweep_s = time.perf_counter() - start
+                launches = kw.launches
+        finally:
+            kw.warp_windowed = real_warp
+            ds.run_experiment_batched = real_batched
+        peak = torch.cuda.max_memory_allocated() / 1e6
+        rows = res["experiments"]
+        log = (root / "out" / "experiment_log.txt").read_text()
+        require("FAILED" not in log and len(rows) == len(exps)
+                and [r["name"] for r in rows] == [e["name"] for e in exps],
+                f"{len(rows)} sweep rows of {len(exps)}, none FAILED")
+        require(launches == sum(counts.values()), f"{launches} K1 launches counted")
+        for r in rows:
+            vfi_eval = r["vfi_method"] != "none" and r["name"] != "control"
+            require(r["frames"] == 4 * n_pairs + 1 and r["device_batched"]
+                    and r["target_resolution"] == f"{out_w}x{out_h}"
+                    and r["vfi_frames_evaluated"] == (n_pairs if vfi_eval else 0)
+                    and r["lpips_frames_sampled"] == (1 if vfi_eval else 0)
+                    and (r["vfi_lpips"] is not None) == vfi_eval, f"sweep row {r['name']}")
+            n = sum(v for (name, _), v in counts.items() if name == r["name"])
+            require((n == 0) == (r["vfi_method"] in SWEEP_NO_K1),
+                    f"{r['name']}: {n} K1 launches")
+            print(f"sweep {r['name']}: time_s {r['time_s']}, fps_achieved {r['fps_achieved']}, "
+                  f"realtime_x {r['realtime_x']}, keyframe_psnr_db {r['keyframe_psnr_db']}, "
+                  f"keyframe_ssim {r['keyframe_ssim']}, vfi_psnr_db {r['vfi_psnr_db']}, "
+                  f"vfi_ssim {r['vfi_ssim']}, vfi_lpips {r['vfi_lpips']} ({r['lpips_mode']}), "
+                  f"overall_psnr_db {r['overall_psnr_db']}, rife_frames_pct "
+                  f"{r['rife_frames_pct']}, expert_mix {r['expert_mix']}; K1 launches {n}")
+        print(f"sweep: {len(rows)} experiments x {4 * n_pairs + 1} frames at {out_w}x{out_h} in "
+              f"{sweep_s:.3f} s (host clock, LPIPS and PNG loading included); peak "
+              f"{peak:.1f} MB over {resident / 1e6:.1f} MB resident; {card}")
+        by_exp = {}
+        for (name, key), n in counts.items():
+            by_exp.setdefault(name, []).append(f"{key[0]} r={key[3]} {key[4]} x{n}")
+        for name, items in by_exp.items():
+            print(f"sweep K1 {name}: " + "; ".join(items))
+        t0 = _phase("sweep_run", t0)
+
+        # routes: each adaptive pair's motion recomputed as the sweep takes it
+        by_name = {r["name"]: r for r in rows}
+        src = torch.stack(kf_dev).float()
+        deg = ds._qu8(resize(src, (ds.INPUT_H, ds.INPUT_W), "area"))
+        out_m = ds._qu8(resize(deg, out_hw, "lanczos4"))
+        edged = ds._qu8(edge_enhance_core(out_m, 1.3))
+        upq = ds._qu8(edge_enhance_core(resize(resize(src, (ds.INPUT_H, ds.INPUT_W), "area"),
+                                               out_hw, "lanczos4"), 1.3))
+        motion, motion_q = [], []
+        for c in range(0, n_pairs, 2):  # the sweep's chunks of 2 pairs where RIFE runs
+            motion += ds._motion_chunk(edged[c:c + 2], edged[c + 1:c + 3]).tolist()
+            motion_q += ds._motion_chunk(upq[c:c + 2], upq[c + 1:c + 3]).tolist()
+        del src, deg, out_m, edged, upq
+        print(f"sweep motion per pair (480x270 fast Farneback): "
+              f"{', '.join(f'{m:.4f}' for m in motion)}")
+        gate_experts = ("rife", "rife_fast", "vfimamba")
+        can_give = {bin_winner("sweep", (b["motion_lo"] + min(b["motion_hi"], 10.0)) / 2,
+                               experts=gate_experts) for b in expert_bins("sweep")}
+        for e in exps:
+            if e["vfi"] != "adaptive":
+                continue
+            thresh = e["motion_thresh"]
+            if e.get("quality_aware"):
+                thresh = min(thresh, blend_crossover_px())
+            want = {"blend": 0, "rife": 0, "rife_fast": 0, "vfimamba": 0}
+            for m, mq in zip(motion, motion_q):
+                if m <= thresh:
+                    want["blend"] += 1
+                elif e.get("quality_aware"):
+                    want[bin_winner("sweep", mq, experts=gate_experts)] += 1
+                else:
+                    want["rife"] += 1
+            got = by_name[e["name"]]
+            require(got["expert_mix"] == want and got["rife_frames_pct"] == round(
+                100.0 * (n_pairs - want["blend"]) / n_pairs, 1),
+                f"{e['name']} routes {got['expert_mix']} (the rule gives {want})")
+            print(f"sweep routes {e['name']} (blend at motion <= {thresh:.4f}): {want}")
+        default, aggressive = by_name["adaptive_default"], by_name["adaptive_aggressive"]
+        require(default["expert_mix"]["blend"] > 0 and default["expert_mix"]["rife"] > 0,
+                "adaptive_default takes both blend and RIFE")
+        require(all(aggressive["expert_mix"][x] > 0 for x in can_give),
+                f"adaptive_aggressive takes every expert the gate can give ({sorted(can_give)})")
+        t0 = _phase("sweep_routes", t0)
+
+        # the batched path against the per-frame loop, on the card
+        checks = []
+        kw.warp_windowed = _checking(kw, checks)
+        try:
+            k5, m5 = kfs[:SWEEP_COMPARE_KF], mids[:SWEEP_COMPARE_KF - 1]
+            interval5 = ds.DeviceInterval(k5, m5, device="cuda")
+            for name, (tol_db, tol_ssim) in SWEEP_COMPARE.items():
+                e = next(x for x in exps if x["name"] == name)
+                b = ds.run_experiment_batched(interval5, e)
+                h = ex.run_experiment(k5, m5, e, verbose=False, device="cuda")
+                d_db = abs(b["vfi_psnr_db"] - h["vfi_psnr_db"]) if h["vfi_frames_evaluated"] else 0.0
+                d_kf = (0.0 if b["keyframe_psnr_db"] == h["keyframe_psnr_db"]
+                        else abs(b["keyframe_psnr_db"] - h["keyframe_psnr_db"]))
+                d_ssim = abs(b["vfi_ssim"] - h["vfi_ssim"])
+                ok = (b["frames"] == h["frames"] and b["vfi_frames_evaluated"]
+                      == h["vfi_frames_evaluated"] and d_db <= tol_db and d_kf <= tol_db
+                      and (tol_ssim is None or d_ssim <= tol_ssim))
+                print(f"sweep batched vs per-frame {name}: vfi_psnr {b['vfi_psnr_db']} vs "
+                      f"{h['vfi_psnr_db']} dB, keyframe {b['keyframe_psnr_db']} vs "
+                      f"{h['keyframe_psnr_db']}, vfi_ssim {b['vfi_ssim']} vs {h['vfi_ssim']} "
+                      f"(tolerance {tol_db} dB, {tol_ssim}); time_s {b['time_s']} vs "
+                      f"{h['time_s']} {'ok' if ok else 'FAIL'}")
+                require(ok, f"sweep batched vs per-frame {name}")
+            del interval5
+        finally:
+            kw.warp_windowed = real_warp
+        max_err = max(max_err, _require_checks(checks, "sweep comparisons"))
+        del checks
+        t0 = _phase("sweep_compare", t0)
+
+        # a video of a light experiment
+        light = [next(x for x in exps if x["name"] == "lanczos_blend_edge")]
+        res = ex.run_experiment_sweep(SWEEP_CLIP, [0], light, output_dir=root / "video",
+                                      write_videos=True, **kwargs)
+        video = root / "video" / "videos" / "lanczos_blend_edge_i0.y4m"
+        require(res["experiments"][0]["output_video"] == str(video), "the video's path")
+        with VideoReader(str(video)) as reader:
+            n_frames, shapes = 0, set()
+            for f in reader:
+                n_frames += 1
+                shapes.add(f.shape)
+        require(n_frames == 4 * n_pairs + 1 and shapes == {(out_h, out_w, 3)},
+                f"the sweep's Y4M holds {n_frames} frames of {shapes}")
+        print(f"sweep video {video.name}: {n_frames} frames at {out_w}x{out_h}, "
+              f"{video.stat().st_size / 1e6:.1f} MB, time_s {res['experiments'][0]['time_s']} "
+              f"(the writer's RGB -> I420 on the host included)")
+        t0 = _phase("sweep_video", t0)
+
+        # the CLI, as a user runs it (on the card by default)
+        cmd = [sys.executable, "-m", "vfisr_tpu_torch.run_experiments", "--clip", SWEEP_CLIP,
+               "--data-dir", str(root / "data"), "--output-dir", str(root / "cli"),
+               "--experiment", "lanczos_blend_edge,rife_fast", "--max-frames", "3"]
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        require(res.returncode == 0, f"run_experiments CLI: {res.stdout[-2000:]}{res.stderr[-2000:]}")
+        cli_rows = json.loads((root / "cli" / "experiment_results.json").read_text())["experiments"]
+        require([r["name"] for r in cli_rows] == ["lanczos_blend_edge", "rife_fast"]
+                and all(r["frames"] == 9 and r["target_resolution"] == f"{out_w}x{out_h}"
+                        for r in cli_rows), "the run_experiments CLI's rows")
+        print(f"sweep CLI: python -m vfisr_tpu_torch.run_experiments --experiment "
+              f"lanczos_blend_edge,rife_fast --max-frames 3: rows {[r['name'] for r in cli_rows]}, "
+              f"{cli_rows[0]['frames']} frames each at {out_w}x{out_h}")
+        t0 = _phase("sweep_cli", t0)
+
+        # one _chunk_program per method (CUDA events), RIFE per chunk
+        interval = ds.DeviceInterval(kfs, mids, device="cuda")
+        ex._RIFESingleton.get("cuda")
+        up = resize(resize(interval.kf[:3].float(), (ds.INPUT_H, ds.INPUT_W), "area"), out_hw,
+                    "lanczos4")
+        for scale, native in ((0.5, 1.0), (0.25, 0.5)):
+            ms = time_ms(lambda: ds._rife_chunk(up[:-1], up[1:], scale), 3, warmup=1)
+            print(f"sweep RIFE chunk (2 pairs x 3 timesteps, batch 6 at {out_w}x{out_h}, f32), "
+                  f"native scale {native}: {ms:.3f} ms; {card}")
+        del up
+        for vfi, k in (("none", 8), ("frame_dup", 8), ("linear_blend", 8), ("optical_flow", 8),
+                       ("ui_aware", 4), ("ughi", 4), ("mcar", 2), ("rife", 2), ("adaptive", 2)):
+            args = (interval.kf[:k + 1], interval.kf[:k + 1], interval.mid[:k],
+                    torch.zeros((k, 3, *out_hw, 3), device=dev))
+            opts = dict(vfi=vfi, interp="lanczos4", edge=1.3, out_hw=out_hw,
+                        is_control=vfi == "none", motion_thresh=3.0, mcar_low=0.25,
+                        mcar_high=0.6, want_frames=False)
+            ms = time_ms(lambda: ds._chunk_program(*args, **opts), 2, warmup=1)
+            print(f"sweep _chunk_program {vfi}, {k} pairs at {out_w}x{out_h}: {ms:.3f} ms "
+                  f"({ms / k:.3f} per pair); {card}")
+            del args
+        del interval
+        t0 = _phase("sweep_timing", t0)
+
+        total = _k1_by_shape(kw, "sweep", "sweep", firsts, counts)
+        del firsts
+        _phase("sweep_k1_timing", t0)
+        return path_numbers(launches, max_err, total, 1)
+    finally:
+        tmp.cleanup()
+
+
+# the triplet phase: run_benchmarks on a processed clip of TRIPLET_FRAMES
+# 1080p frames of the adaptive phase's scene panning TRIPLET_PAN px per frame,
+# its ground truth rendered at 2560x1440 (the clip's 1.3333 scale) at t =
+# 0.25/0.5/0.75
+TRIPLET_FRAMES, TRIPLET_PAN, TRIPLET_SCALE = 5, 4.0, 1.3333
+TRIPLET_GT_HW = (1440, 2560)  # the models give 1439x2559 at 1.3333; the evaluator resizes
+TRIPLET_MODELS = "lanczos,rife,adaptive,safa"
+
+
+def triplet_phase(kw, card: str) -> dict:
+    """Step 20 of the module docstring. Returns K1's numbers over the
+    counted run's launches."""
+    from vfisr_tpu_torch.data.png import write_png
+    from vfisr_tpu_torch.harness import triplet as tr
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_triplet_")
+    root = Path(tmp.name)
+    try:
+        clip = root / "data" / "clip_chip"
+        inp, gtd = clip / "input_1080p30" / "frames", clip / "ground_truth" / "frames"
+        inp.mkdir(parents=True)
+        gtd.mkdir(parents=True)
+        gh, gw = TRIPLET_GT_HW
+        for i in range(TRIPLET_FRAMES):
+            write_png(inp / f"frame_{i:04d}.png", scene_frame(TRIPLET_PAN * i, dev).cpu().numpy())
+        triplets = []
+        for i in range(TRIPLET_FRAMES - 1):
+            names = [f"gt_{i:04d}_{k}.png" for k in range(3)]
+            for name, t in zip(names, TS):
+                write_png(gtd / name, scene_frame(TRIPLET_PAN * (i + t), dev, gh, gw,
+                                                  scale=gw / W).cpu().numpy())
+            triplets.append({"triplet_id": i, "input_frame_0": f"frame_{i:04d}.png",
+                             "input_frame_1": f"frame_{i + 1:04d}.png",
+                             "gt_intermediate": names, "num_intermediate": 3})
+        (clip / "metadata.json").write_text(json.dumps({"spatial_scale": TRIPLET_SCALE,
+                                                        "fps": 30}))
+        (clip / "triplets.json").write_text(json.dumps(triplets))
+        t0 = _phase("triplet_clip", t0)
+
+        # every K1 launch checked as it goes
+        checks, real_warp = [], kw.warp_windowed
+        kw.warp_windowed = _checking(kw, checks)
+        try:
+            print("triplet check run (every K1 launch against its twin and its origins):")
+            out = tr.run_benchmarks(root / "data", root / "check", models=TRIPLET_MODELS,
+                                    warmup=1, device="cuda")
+        finally:
+            kw.warp_windowed = real_warp
+        require(all("error" not in r for r in out["results"]["clip_chip"].values()),
+                "the check run's rows")
+        max_err = _require_checks(checks, "triplet check run")
+        del checks
+        t0 = _phase("triplet_check_run", t0)
+
+        # counted (window_origins raising), timed
+        firsts, counts, tag = {}, {}, {"name": "triplet"}
+        kw.warp_windowed = _shape_counter(kw, firsts, counts, tag)
+        try:
+            with origin_table_raises(kw):
+                kw.launches = 0
+                out = tr.run_benchmarks(root / "data", root / "out", models=TRIPLET_MODELS,
+                                        warmup=1, device="cuda")
+                launches = kw.launches
+        finally:
+            kw.warp_windowed = real_warp
+        rows = out["results"]["clip_chip"]
+        require(list(rows) == TRIPLET_MODELS.split(","), f"triplet rows {list(rows)}")
+        for name, r in rows.items():
+            require("error" not in r, f"triplet {name}: {r.get('error')}")
+            require(r["num_triplets"] == TRIPLET_FRAMES - 1, f"triplet {name} count")
+            q, sp = r["quality_summary"], r["speed_summary"]
+            require(all(math.isfinite(q[m]["mean"]) for m in ("psnr", "ssim", "lpips")),
+                    f"triplet {name} quality finite")
+            print(f"triplet {name} ({r['model']}): psnr {q['psnr']['mean']:.4f} dB, ssim "
+                  f"{q['ssim']['mean']:.4f}, lpips {q['lpips']['mean']:.4f} ({out['lpips_mode']}); "
+                  f"time_ms mean {sp['time_ms']['mean']:.3f}, p50 {sp['time_ms']['p50']:.3f}; "
+                  f"throughput_fps {sp['throughput_fps']:.3f}; vram_mb max "
+                  f"{sp['vram_mb']['max']:.1f}; {card}")
+        require(launches == sum(counts.values()) and launches > 0,
+                f"{launches} K1 launches in the triplet run")
+        t0 = _phase("triplet_run", t0)
+
+        # the CLI, as a user runs it, and a --merge run that keeps its row
+        base = [sys.executable, "-m", "vfisr_tpu_torch.benchmark", "-d", str(root / "data"),
+                "-o", str(root / "cli"), "--warmup", "1"]
+        for extra in (["-m", "lanczos", "--max-triplets", "2"],
+                      ["-m", "bicubic", "--max-triplets", "1", "--merge"]):
+            res = subprocess.run(base + extra, cwd=ROOT, capture_output=True, text=True,
+                                 timeout=300)
+            require(res.returncode == 0, f"benchmark CLI {extra}: {res.stdout[-2000:]}"
+                                         f"{res.stderr[-2000:]}")
+        merged = json.loads((root / "cli" / "benchmark_results.json").read_text())
+        require(set(merged["results"]["clip_chip"]) == {"lanczos", "bicubic"}
+                and merged["results"]["clip_chip"]["lanczos"]["num_triplets"] == 2
+                and merged["merged_models"] == ["bicubic"],
+                "the benchmark CLI's file, merged")
+        print("triplet CLI: python -m vfisr_tpu_torch.benchmark -m lanczos --max-triplets 2, "
+              "then -m bicubic --merge: both rows in benchmark_results.json")
+        t0 = _phase("triplet_cli", t0)
+
+        total = _k1_by_shape(kw, "triplet", "run", firsts, counts)
+        _phase("triplet_k1_timing", t0)
+        return path_numbers(launches, max_err, total, 1)
+    finally:
+        tmp.cleanup()
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2470,13 +2955,15 @@ def main() -> int:
     train_span_phase(kw)
     k1_evaluation = evaluation_phase(kw)
     k1_bench = bench_phase(kw, totals)
+    k1_sweep = sweep_phase(kw, card)
+    k1_triplet = triplet_phase(kw, card)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
     print(json.dumps({"kernels": [
         kernel_entry("warp_windowed", [k1_flagship, k1_stream_flagship, k1_train, k1_adaptive,
                                        k1_stream_adaptive, k1_safa, k1_safa_train, k1_evaluation,
-                                       k1_bench]),
+                                       k1_bench, k1_sweep, k1_triplet]),
         kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -189,3 +189,56 @@ def adversarial_flow(kind: str, rng: np.random.Generator, n: int, h: int, w: int
     if kind == "ragged":
         return flow, 1.0
     raise ValueError(f"unknown adversarial flow {kind!r}")
+
+
+RIFE_NARROW = dict(channels=(32, 24, 16, 16), num_convs=2)
+
+
+def narrow_rife(seed: int, **cfg):
+    """(JAX RIFEModel, port RIFEModel) on the CPU: a narrow IFNet (f32, f32
+    warp windows unless cfg says otherwise) with the same seeded normal
+    parameters in both packages, without running Flax's init (seconds to
+    minutes on the CPU): ``jax.eval_shape`` gives the shapes."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from vfisr_tpu.models.sota import rife as jrife
+    from vfisr_tpu_torch.models.sota import rife as trife
+    from vfisr_tpu_torch.utils.checkpoint import params_from_jax
+
+    kw = dict(RIFE_NARROW, **cfg)
+    jcfg = jrife.RIFEConfig(**{"warp_dtype": jnp.float32, **kw})
+    net = jrife.IFNet(jcfg)
+    z = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    shapes = jax.eval_shape(net.init, jax.random.PRNGKey(0), z, z, jnp.asarray([0.5]))["params"]
+    flat, tree = noisy_params(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes), seed)
+    jr = jrife.RIFEModel(device="cpu", config=jcfg)
+    jr.params = tree
+    jr._apply = jax.jit(lambda p, a, b, s: net.apply({"params": p}, a, b, s))
+    tr = trife.RIFEModel(device="cpu", config=trife.RIFEConfig(**{"warp_dtype": torch.float32,
+                                                                 **kw}))
+    tr.module = trife.IFNet(tr.CONFIG)
+    tr.module.load_state_dict(params_from_jax(flat))
+    tr.module.eval().requires_grad_(False)
+    jr._loaded = tr._loaded = True
+    return jr, tr
+
+
+def sweep_interval(pans, seed: int = 0, h: int = 144, w: int = 256):
+    """(keyframes, midpoints) of an interval for the experiment harnesses:
+    h x w uint8 windows of a wide smooth canvas at the cumulative pan
+    offsets (px per pair), the midpoints at the half offsets, a static HUD
+    box on top."""
+    offs = np.concatenate([[0], np.cumsum(pans)]).astype(int)
+    canvas = smooth_frames(np.random.default_rng(seed), 1, h, w + offs[-1] + 8, cell=12)[0]
+    canvas = np.clip(np.floor(canvas * 255 + 0.5), 0, 255).astype(np.uint8)
+
+    def window(x):
+        f = canvas[:, x:x + w].copy()
+        f[: h // 6, : w // 5] = (230, 230, 40)
+        return f
+
+    kfs = [window(o) for o in offs]
+    mids = [window((a + b) // 2) for a, b in zip(offs[:-1], offs[1:])]
+    return kfs, mids

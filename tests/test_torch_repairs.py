@@ -37,6 +37,43 @@ def test_load_turns_tf32_off(name, tf32_flags):
     assert not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
 
 
+def _sweep(tmp):
+    from vfisr_tpu_torch.harness.experiments import run_experiment_sweep
+
+    run_experiment_sweep("none", [], [], output_dir=str(tmp / "out"), use_lpips=False,
+                         device="cpu")
+
+
+def _benchmarks(tmp):
+    from vfisr_tpu_torch.harness.triplet import run_benchmarks
+
+    run_benchmarks(str(tmp), str(tmp / "out"), models="lanczos", device="cpu")
+
+
+def _experiments_cli(tmp):
+    from vfisr_tpu_torch.run_experiments import main
+
+    main(["--output-dir", str(tmp / "out"), "--device", "cpu"])
+
+
+def _benchmark_cli(tmp):
+    from vfisr_tpu_torch.benchmark import main
+
+    main(["-d", str(tmp), "-o", str(tmp / "out"), "-m", "lanczos", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("entry", [_sweep, _benchmarks, _experiments_cli, _benchmark_cli])
+def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
+    """The sweep, the triplet benchmark and their CLIs turn TF32 off before
+    any work (here each stops early: no interval, no clip)."""
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        entry(tmp_path)
+    except SystemExit:
+        pass
+    assert not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
+
+
 @pytest.mark.parametrize("shape,multiple", [((1, 16, 20, 3), 32), ((5, 5, 3), 16),
                                             ((2, 33, 7, 3), 8)])
 def test_pad_to_multiple_matches_jnp_pad(shape, multiple):

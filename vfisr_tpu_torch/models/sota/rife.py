@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vfisr_tpu_torch.core.frames import pad_to_multiple, unpad
+from vfisr_tpu_torch.core.frames import from_batched, pad_to_multiple, to_batched, unpad
 from vfisr_tpu_torch.core.resize import resize, scale_size
 from vfisr_tpu_torch.core.warp import backward_warp
 from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, upscale_frame
@@ -133,24 +133,30 @@ class IFNet(nn.Module):
         for i, c in enumerate(config.channels):
             self.add_module(f"block{i}", IFBlock(12, c, config.num_convs))
 
-    def forward(self, img0: torch.Tensor, img1: torch.Tensor, timestep):
-        """img0/img1: [N,H,W,3] in [0,1]; timestep: [N] or scalar.
+    def forward(self, img0: torch.Tensor, img1: torch.Tensor, timestep,
+                scales: Optional[Tuple[int, ...]] = None):
+        """img0/img1: [N,H,W,3] in [0,1]; timestep: [N] or scalar; scales:
+        the pyramid's per-level scales in place of the config's (one per
+        block, the same parameters: ``RIFEModel.scales_for``).
 
         Returns (merged [N,H,W,3], flow [N,H,W,4], mask [N,H,W,1]).
         """
         cfg = self.config
+        scales = tuple(scales or cfg.scales)
+        if len(scales) != len(cfg.scales):
+            raise ValueError(f"{len(scales)} pyramid scales for {len(cfg.scales)} blocks")
         n, h, w, _ = img0.shape
         out_dtype = img0.dtype
         x0 = img0.to(cfg.dtype).permute(0, 3, 1, 2)
         x1 = img1.to(cfg.dtype).permute(0, 3, 1, 2)
         t_scalar = torch.as_tensor(timestep, dtype=cfg.dtype, device=img0.device).reshape(-1, 1, 1, 1)
 
-        ws_list = [max(s, cfg.min_warp_scale) if cfg.warp_at_level else 1 for s in cfg.scales]
+        ws_list = [max(s, cfg.min_warp_scale) if cfg.warp_at_level else 1 for s in scales]
         pyr0 = _build_pyramid(x0, max(ws_list))
         pyr1 = _build_pyramid(x1, max(ws_list))
 
         flow = mask = None
-        for i, scale in enumerate(cfg.scales):
+        for i, scale in enumerate(scales):
             ws = ws_list[i]
             sh, sw = max(h // ws, 1), max(w // ws, 1)
             img0_s, img1_s = pyr0[ws], pyr1[ws]
@@ -256,8 +262,9 @@ class RIFEModel(BaseModel):
     PAD_MULTIPLE = 32
 
     def __init__(self, device: str = "cuda", seed: int = 0,
-                 config: Optional[RIFEConfig] = None):
+                 config: Optional[RIFEConfig] = None, uhd_mode: bool = False):
         super().__init__(device)
+        self.uhd_mode = uhd_mode  # the pyramid one level coarser when no scale is given
         self.seed = seed
         if config is not None:
             self.CONFIG = config
@@ -314,34 +321,63 @@ class RIFEModel(BaseModel):
             raise RuntimeError("load() the model before training it")
         return self.module.train().requires_grad_(True)
 
-    @staticmethod
-    def _check_scale(scale) -> None:
-        if scale not in (None, 1.0):
-            raise NotImplementedError(
-                f"RIFEModel scale {scale}: only the trained pyramid (1.0) is ported "
-                "(ROADMAP queue 1, item 4)")
+    def scales_for(self, scale: float) -> Tuple[int, ...]:
+        """The pyramid at native scale ``scale``: each level's scale /
+        scale, rounded, at least 1 (JAX ``rife.py::_apply_for_scale``).
+        Below 1 the flow runs at coarser resolutions with the same
+        parameters (the reference's ``scale`` knob: 0.5 one level coarser,
+        0.25 two)."""
+        if not scale or scale == 1.0:
+            return tuple(self.CONFIG.scales)
+        return tuple(max(int(round(s / float(scale))), 1) for s in self.CONFIG.scales)
 
     def interpolate_batch(self, x0: torch.Tensor, x1: torch.Tensor,
                           timestamps: Tuple[float, ...], scale: float = 1.0) -> torch.Tensor:
         """[N,H,W,3] pair -> [N,T,H,W,3]: one IFNet call on the N*T batch
-        (pair-major), padded to a multiple of 32. Only the trained pyramid
-        (scale 1.0) is ported; other scales raise."""
-        self._check_scale(scale)
-        pad = max(self.PAD_MULTIPLE, max(self.CONFIG.scales))
+        (pair-major), its pyramid at native ``scale`` (``scales_for``),
+        padded to a multiple of max(32, the coarsest level's scale)."""
+        scales = self.scales_for(scale)
+        pad = max(self.PAD_MULTIPLE, max(scales))
         n, h, w, _ = x0.shape
         t = len(timestamps)
         x0p, _ = pad_to_multiple(x0, pad)
         x1p, _ = pad_to_multiple(x1, pad)
         ts = torch.tensor(timestamps, dtype=x0.dtype, device=x0.device).repeat(n)
         with torch.no_grad():
-            merged = self.module(x0p.repeat_interleave(t, 0), x1p.repeat_interleave(t, 0), ts)[0]
+            merged = self.module(x0p.repeat_interleave(t, 0), x1p.repeat_interleave(t, 0), ts,
+                                 scales=scales)[0]
         return unpad(merged, h, w).reshape(n, t, h, w, 3)
 
     def interpolate(self, frame0: np.ndarray, frame1: np.ndarray, num_frames: int = 3,
                     timestamps=None, scale: Optional[float] = None) -> List[np.ndarray]:
-        """The base adapter with the reference's ``scale`` knob (1.0 only)."""
-        self._check_scale(scale)
-        return super().interpolate(frame0, frame1, num_frames, timestamps)
+        """The base adapter with the reference's per-call ``scale``, in
+        native pyramid units (1.0 = the trained pyramid). An explicit scale
+        wins; without one, ``uhd_mode`` runs the pyramid one level coarser
+        (0.5), as the reference does for >= 4K inputs."""
+        if timestamps is None:
+            timestamps = self.get_default_timestamps(num_frames)
+        if scale is None:
+            scale = 0.5 if self.uhd_mode else 1.0
+        out = self.interpolate_batch(to_batched(frame0, self.device),
+                                     to_batched(frame1, self.device), tuple(timestamps),
+                                     scale=scale)
+        return [from_batched(out[:, i]) for i in range(out.shape[1])]
+
+    def interpolate_recursive(self, frame0: np.ndarray, frame1: np.ndarray,
+                              factor: int = 2) -> List[np.ndarray]:
+        """2^n frame multiplication by recursive midpoints: the frames
+        strictly between frame0 and frame1 (JAX ``rife.py:525``)."""
+        self.ensure_loaded()
+        if factor < 2:
+            return []
+        frames = [frame0, frame1]
+        while len(frames) - 1 < factor:
+            new_frames = [frames[0]]
+            for i in range(len(frames) - 1):
+                mid = self.interpolate(frames[i], frames[i + 1], num_frames=1)[0]
+                new_frames += [mid, frames[i + 1]]
+            frames = new_frames
+        return frames[1:-1]
 
     def upscale_batch(self, x: torch.Tensor, scale: float = 1.333) -> torch.Tensor:
         h, w = x.shape[-3:-1]
@@ -358,3 +394,10 @@ class RIFELiteModel(RIFEModel):
     CONFIG = RIFEConfig(scales=(4, 2, 1), channels=(176, 112, 80), num_convs=8)
     NAME = "RIFE-Lite"
     WEIGHTS = "rife_lite"
+
+
+def get_rife_model(lite: bool = False, device: str = "cuda") -> RIFEModel:
+    """A loaded RIFE (or RIFE-Lite) model (JAX ``rife.py:550``)."""
+    model = RIFELiteModel(device) if lite else RIFEModel(device)
+    model.load()
+    return model

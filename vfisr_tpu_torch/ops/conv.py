@@ -61,8 +61,20 @@ def sep_filter2d(x: torch.Tensor, krow: np.ndarray, kcol: np.ndarray,
     return out.permute(0, 2, 3, 1)
 
 
+def auto_gaussian_ksize(sigma: float, uint8_input: bool = False) -> int:
+    """cv2.GaussianBlur's aperture for ksize (0, 0): round(sigma*F*2 + 1) | 1,
+    F = 3 for uint8 input and 4 for float input."""
+    factor = 3 if uint8_input else 4
+    return int(round(sigma * factor * 2 + 1)) | 1
+
+
 def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
-    """cv2.GaussianBlur analog with an explicit aperture."""
+    """cv2.GaussianBlur analog; ksize 0 derives the aperture from sigma
+    (``auto_gaussian_ksize``, by x's dtype, as cv2 does)."""
+    if ksize == 0:
+        if sigma <= 0:
+            raise ValueError("gaussian_blur needs a ksize or a sigma")
+        ksize = auto_gaussian_ksize(sigma, uint8_input=not x.is_floating_point())
     k = gaussian_kernel1d(ksize, sigma)
     return sep_filter2d(x, k, k)
 

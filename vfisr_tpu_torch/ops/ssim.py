@@ -102,14 +102,21 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor, win_size: int = 7, data_range: flo
     return total.reshape(orig_batch)
 
 
+def ssim_global_batch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """[N, ...] pairs -> [N]: the global-statistics SSIM of each x[i], y[i]
+    over all their elements, clamped to [0, 1] (``jax.vmap(ssim_global)``)."""
+    c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
+    xf, yf = x.float().flatten(1), y.float().flatten(1)
+    mu1, mu2 = xf.mean(1, keepdim=True), yf.mean(1, keepdim=True)
+    s1 = ((xf - mu1) ** 2).mean(1)
+    s2 = ((yf - mu2) ** 2).mean(1)
+    s12 = ((xf - mu1) * (yf - mu2)).mean(1)
+    mu1, mu2 = mu1[:, 0], mu2[:, 0]
+    v = ((2 * mu1 * mu2 + c1) * (2 * s12 + c2)) / ((mu1 ** 2 + mu2 ** 2 + c1) * (s1 + s2 + c2))
+    return torch.clamp(v, 0.0, 1.0)
+
+
 def ssim_global(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Global-statistics SSIM over all elements of x and y (one value),
     clamped to [0, 1]."""
-    c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
-    xf, yf = x.float(), y.float()
-    mu1, mu2 = xf.mean(), yf.mean()
-    s1 = ((xf - mu1) ** 2).mean()
-    s2 = ((yf - mu2) ** 2).mean()
-    s12 = ((xf - mu1) * (yf - mu2)).mean()
-    v = ((2 * mu1 * mu2 + c1) * (2 * s12 + c2)) / ((mu1 ** 2 + mu2 ** 2 + c1) * (s1 + s2 + c2))
-    return torch.clamp(v, 0.0, 1.0)
+    return ssim_global_batch(x[None], y[None])[0]
