@@ -227,13 +227,47 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    model, finite quality. Prints per model PSNR, SSIM, LPIPS, time_ms mean
    and p50, throughput_fps and vram_mb; then ``python -m
    vfisr_tpu_torch.benchmark -m lanczos --max-triplets 2`` as a subprocess,
-   and a ``--merge`` run of bicubic that keeps its row; K1 per launch shape.
+   and a ``--merge`` run of bicubic that keeps its row; K1 per launch shape;
+21. runs the dataset pipeline ("ingest": data/, its CLIs, analysis/) on a
+   source clip made on the card: INGEST_FRAMES frames of step 9's scene at
+   2560x1440 packed with pack_i420 into a 120 fps Y4M in a temporary
+   data/raw/, panning 0, 2 and 8 px per frame over the three intervals that
+   extract_intervals(count=3, duration=0.1) places (the pan's change points
+   from the port's placement code: the floor of int(start_s * fps) puts them
+   at source frames 0, 13 and 27). ``python -m vfisr_tpu_torch.register_clip``
+   (the entry's size, fps, frames and duration checked); the 3 intervals
+   extracted at 1920x1080 in-process on the card, once with every K1 launch
+   (Farneback at 960x540 and its pyramid) held against its twin and its
+   origins as it goes, then counted with ``window_origins`` raising and
+   timed. Checks: 6/6, 7/6 and 7/6 keyframes/midpoints; interval 1's first
+   two keyframes within 1 LSB of the CPU's crop and Lanczos4 of the
+   host-decoded frames, its first pair's motion stats within rel 1e-3 of the
+   CPU's; the static interval STATIC and mean_flow rising with the pan;
+   each meta.json's difficulty that of its mean_flow; ``python -m
+   vfisr_tpu_torch.validate_intervals`` on all three (exit 0) and
+   list_intervals listing them. Each stage of a frame alone (decode,
+   upload, I420 -> RGB, crop and Lanczos4, read-back, PNG encode beside
+   zlib's default strategy on unfiltered rows; Farneback per pair by CUDA
+   events). Then ``python -m vfisr_tpu_torch.preprocess_video`` (30 -> 120
+   fps, input 1920x1080, ground truth 2560x1440), timed by its own print:
+   10 input and 40 GT frames, 9 triplets equal to the reference's formula,
+   each GT PNG equal to its decoded source frame. run_benchmarks(models="lanczos,rife") on that
+   clip, its K1 launches checked as they go: 9 triplets per model, no error
+   row. ``python -m vfisr_tpu_torch.run_full_benchmark`` (light experiments,
+   all 3 intervals): 12 rows per interval, none FAILED; analyze_statistics,
+   normalize_data and final_analysis on its results, uafi_default and
+   ughi_default with n = 3 paired intervals. ``python -m
+   vfisr_tpu_torch.evaluate_quality --comprehensive`` on interval 1's
+   keyframes against its midpoints. Prints each stage's seconds, fps of
+   extraction and of preprocessing, peak memory, each interval's mean_flow
+   against its known displacement, and K1 per launch shape.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
 it (K1: the flagship pairs, the flagship stream, the RIFE train steps, the
 adaptive sequence, the adaptive stream, the SAFA pairs, the SAFA train
-steps, the evaluation, the bench, the sweep and the triplet benchmark; K2:
+steps, the evaluation, the bench, the sweep, the triplet benchmark and the
+counted extraction of the ingest; K2:
 the RIFE and the SAFA train steps)
 and the device time, bound, plain-twin and grid_sample time of exactly
 those launches (a stream's and the bench's launches at their shapes' times
@@ -2772,6 +2806,399 @@ def triplet_phase(kw, card: str) -> dict:
         tmp.cleanup()
 
 
+# the ingest phase: the dataset pipeline (data/, its CLIs, analysis/) on a
+# source clip the card renders: INGEST_FRAMES frames of the adaptive phase's
+# scene (plane waves under a static HUD box) at INGEST_HW, a INGEST_FPS fps
+# Y4M, panning INGEST_PANS px per source frame over the INGEST_COUNT
+# intervals of INGEST_DURATION s that extract_intervals places
+INGEST_HW, INGEST_FRAMES, INGEST_FPS = (1440, 2560), 40, 120
+INGEST_PANS = (0, 2, 8)
+INGEST_COUNT, INGEST_DURATION = 3, 0.1
+INGEST_OUT = (1920, 1080)  # the intervals' frames and the triplets' input (w, h)
+INGEST_IN_FPS = 30
+INGEST_CLIP = "chip_ingest"
+INGEST_MODELS = "lanczos,rife"
+INGEST_STAGE_FRAMES = 8  # frames per stage timing
+
+
+def ingest_layout(xi) -> tuple:
+    """Each source frame's pan offset (px at INGEST_HW) and the intervals'
+    (first, end) source frames, from the port's placement code (the
+    extractor's own): the floor of int(start_s * fps) moves the starts, so
+    the pan changes where the extractor will cut, not where a hand puts it."""
+    _, starts = xi.interval_starts(INGEST_FRAMES / INGEST_FPS, INGEST_COUNT, INGEST_DURATION)
+    spans = [xi.interval_frames(s, INGEST_DURATION, INGEST_FPS, INGEST_FRAMES) for s in starts]
+    x, xs = 0.0, []
+    for f in range(INGEST_FRAMES):
+        xs.append(x)
+        x += INGEST_PANS[max(sum(f >= a for a, _ in spans) - 1, 0)]
+    return xs, spans
+
+
+def run_cli(args: list, label: str, timeout: int = 300) -> tuple:
+    """``python -m <args>`` as a user runs it, from the repository's root:
+    (stdout, seconds with the process's start). Fails on a nonzero exit."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *map(str, args)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=timeout)
+    require(res.returncode == 0, f"{label}: exit {res.returncode}: {res.stdout[-2000:]}"
+                                 f"{res.stderr[-2000:]}")
+    return res.stdout, time.perf_counter() - t0
+
+
+def want_triplets(n_in: int, n_gt: int, scale: float) -> list:
+    """The triplet index the reference's formula gives (preprocess_video.py:
+    gt_start = round(i * scale), gt_end = round((i + 1) * scale), the frames
+    strictly between them, positions (k - gt_start) / (gt_end - gt_start))."""
+    out = []
+    for i in range(n_in - 1):
+        s, e = int(round(i * scale)), int(round((i + 1) * scale))
+        mid = list(range(s + 1, e))
+        if not mid or e >= n_gt:
+            continue
+        out.append({"triplet_id": len(out), "input_frame_0": f"frame_{i:05d}.png",
+                    "input_frame_1": f"frame_{i + 1:05d}.png", "input_idx_0": i,
+                    "input_idx_1": i + 1, "gt_frame_start": f"frame_{s:05d}.png",
+                    "gt_frame_end": f"frame_{e:05d}.png", "gt_start_idx": s, "gt_end_idx": e,
+                    "gt_intermediate": [f"frame_{k:05d}.png" for k in mid],
+                    "gt_intermediate_indices": mid,
+                    "temporal_positions": [(k - s) / (e - s) for k in mid],
+                    "num_intermediate": len(mid)})
+    return out
+
+
+def ingest_phase(kw, card: str) -> dict:
+    """Step 21 of the module docstring. Returns K1's numbers over the
+    counted extraction's launches."""
+    import contextlib as cl
+    import io
+    import shutil
+    import zlib
+
+    from vfisr_tpu_torch import list_intervals
+    from vfisr_tpu_torch.analysis import final_analysis, normalize_data, statistical_analysis
+    from vfisr_tpu_torch.core.color import i420_to_rgb, rgb_to_gray
+    from vfisr_tpu_torch.core.resize import resize
+    from vfisr_tpu_torch.data import extract_intervals as xi
+    from vfisr_tpu_torch.data.png import read_png, write_png
+    from vfisr_tpu_torch.data.registry import ClipRegistry
+    from vfisr_tpu_torch.data.video_io import VideoReader, VideoWriter
+    from vfisr_tpu_torch.harness import triplet as tr
+    from vfisr_tpu_torch.ops.flow import farneback_flow
+    from vfisr_tpu_torch.pipeline.streaming import pack_i420
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sh, sw = INGEST_HW
+    ow, oh = INGEST_OUT
+    xs, spans = ingest_layout(xi)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_")
+    root = Path(tmp.name)
+    data = root / "data"
+    y4m = data / "raw" / "ingest.y4m"
+    try:
+        # 1. the source clip, rendered on the card and packed to I420 there
+        scale = sw / W
+        with VideoWriter(str(y4m), sw, sh, INGEST_FPS) as wr:
+            for x in xs:
+                wr.write_i420(pack_i420(scene_frame(x / scale, dev, sh, sw, scale=scale)[None])[0]
+                              .cpu().numpy())
+        print(f"ingest source: {y4m.name}, {INGEST_FRAMES} frames at {sw}x{sh}, {INGEST_FPS} fps, "
+              f"{y4m.stat().st_size / 1e6:.1f} MB; intervals (source frames) {spans}, pans "
+              f"{INGEST_PANS} px per frame")
+        t0 = _phase("ingest_source", t0)
+
+        # 2. register, through the CLI
+        _, reg_s = run_cli(["vfisr_tpu_torch.register_clip", y4m, "--clip-id", INGEST_CLIP,
+                            "--data-dir", data], "register_clip")
+        entry = ClipRegistry(data).get_clip(INGEST_CLIP)
+        require(entry is not None and (entry["width"], entry["height"], entry["fps"],
+                                       entry["frame_count"]) == (sw, sh, float(INGEST_FPS),
+                                                                 INGEST_FRAMES)
+                and entry["duration_s"] == INGEST_FRAMES / INGEST_FPS,
+                f"the registry entry {entry}")
+        print(f"ingest register (python -m vfisr_tpu_torch.register_clip): {reg_s:.3f} s; "
+              f"{entry['width']}x{entry['height']}@{entry['fps']} fps, {entry['frame_count']} "
+              f"frames, {entry['duration_s']:.4f} s, codec {entry['codec']}")
+        t0 = _phase("ingest_register", t0)
+
+        # 3a. the extraction with every K1 launch checked as it goes, into a
+        # copy of the registry (its times include the twins)
+        check = root / "check"
+        (check / "clips" / INGEST_CLIP).mkdir(parents=True)
+        shutil.copy(data / "clips_registry.json", check)
+        shutil.copy(data / "clips" / INGEST_CLIP / "clip_meta.json", check / "clips" / INGEST_CLIP)
+        checks, real_warp = [], kw.warp_windowed
+        kw.warp_windowed = _checking(kw, checks)
+        try:
+            xi.IntervalExtractor(check, device="cuda").extract_intervals(
+                INGEST_CLIP, INGEST_COUNT, INGEST_DURATION, output_resolution=INGEST_OUT,
+                verbose=False)
+        finally:
+            kw.warp_windowed = real_warp
+        max_err = _require_checks(checks, "ingest check run")
+        del checks
+        t0 = _phase("ingest_check_run", t0)
+
+        # 3b. the extraction, counted (window_origins raising) and timed: the
+        # main path of this step
+        firsts, counts, tag = {}, {}, {"name": "ingest"}
+        kw.warp_windowed = _shape_counter(kw, firsts, counts, tag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        try:
+            with origin_table_raises(kw):
+                kw.launches = 0
+                start = time.perf_counter()
+                metas = xi.IntervalExtractor(data, device="cuda").extract_intervals(
+                    INGEST_CLIP, INGEST_COUNT, INGEST_DURATION, output_resolution=INGEST_OUT,
+                    verbose=False)
+                torch.cuda.synchronize()
+                extract_s = time.perf_counter() - start
+                launches = kw.launches
+        finally:
+            kw.warp_windowed = real_warp
+        peak = torch.cuda.max_memory_allocated() / 1e6
+        n_read = sum(m["end_frame"] - m["start_frame"] for m in metas)
+        n_pairs = sum(m["keyframe_count"] - 1 for m in metas)
+        require(launches == sum(counts.values()) and launches > 0 and launches % n_pairs == 0,
+                f"{launches} K1 launches over {n_pairs} keyframe pairs")
+        require([(m["start_frame"], m["end_frame"], m["keyframe_count"], m["midpoint_count"])
+                 for m in metas] == [(a, e, (e - a + 1) // 2, (e - a) // 2) for a, e in spans],
+                f"the intervals' frames and counts {[(m['start_frame'], m['end_frame']) for m in metas]}")
+        flows = []
+        for m, pan in zip(metas, INGEST_PANS):
+            idir = data / "clips" / INGEST_CLIP / "intervals" / m["interval_id"]
+            meta = json.loads((idir / "meta.json").read_text())
+            mf = meta["motion_stats"]["mean_flow"]
+            require(meta["difficulty"] == xi.classify_difficulty(mf), f"{m['interval_id']} difficulty")
+            flows.append(mf)
+            print(f"ingest {m['interval_id']}: source frames [{m['start_frame']}, {m['end_frame']}), "
+                  f"{m['keyframe_count']} keyframes / {m['midpoint_count']} midpoints, mean_flow "
+                  f"{mf:.4f} px against a known {2 * pan * ow / sw:.4f} px per keyframe pair at "
+                  f"{ow}x{oh} (the HUD box static), max_flow {meta['motion_stats']['max_flow']:.4f}, "
+                  f"{meta['difficulty']}")
+        require(metas[0]["difficulty"] == "STATIC" and flows == sorted(set(flows)),
+                f"the static interval is STATIC and mean_flow rises with the pan: {flows}")
+        print(f"ingest extraction: {n_read} source frames ({INGEST_COUNT} intervals, {n_pairs} "
+              f"pairs) in {extract_s:.3f} s = {n_read / extract_s:.2f} fps (host clock; decode, "
+              f"PNG and Farneback included); K1 {launches} launches ({launches // n_pairs} per "
+              f"pair); peak {peak:.1f} MB over {resident / 1e6:.1f} MB resident; {card}")
+        t0 = _phase("ingest_extract", t0)
+
+        # the card against the CPU path: interval 1's first two keyframes
+        # from the host's decode, and its first pair's statistics
+        a1 = spans[1][0]
+        idir1 = data / "clips" / INGEST_CLIP / "intervals" / metas[1]["interval_id"]
+        with VideoReader(str(y4m), a1) as rd:
+            src = [rd.read() for _ in range(3)]
+        kf = [read_png(idir1 / "keyframes" / f"kf_{k:04d}.png") for k in (0, 1)]
+        for k, f in ((0, src[0]), (1, src[2])):
+            cpu = xi.fit_frame(torch.from_numpy(f), INGEST_OUT).numpy()
+            d = np.abs(cpu.astype(int) - kf[k].astype(int))
+            print(f"ingest keyframe {k} of {metas[1]['interval_id']} against the CPU's crop and "
+                  f"Lanczos4 of the host-decoded frame: max {d.max()} LSB, mean {d.mean():.6f}")
+            require(d.max() <= 1, f"keyframe {k} against the CPU path")
+        pair = json.loads((idir1 / "motion" / "complexity.json").read_text())[0]
+        cpu_stats = xi.compute_motion_stats(kf[0][..., ::-1], kf[1][..., ::-1], device="cpu")
+        rel = {k: abs(pair[k] - v) / max(abs(v), 1e-12) for k, v in cpu_stats.items()}
+        print(f"ingest pair 0 of {metas[1]['interval_id']}, card against CPU: "
+              + ", ".join(f"{k} {pair[k]:.6f} / {cpu_stats[k]:.6f} (rel {rel[k]:.2e})"
+                          for k in cpu_stats))
+        require(max(rel.values()) <= 1e-3, "the pair's motion stats, card against CPU")
+        t0 = _phase("ingest_cpu_checks", t0)
+
+        # the CLIs over what was extracted
+        out, val_s = run_cli(["vfisr_tpu_torch.validate_intervals", "--clip", INGEST_CLIP,
+                              "--interval", ",".join(str(i) for i in range(len(metas))),
+                              "--data-dir", data, "--sample", "3"], "validate_intervals")
+        require("VALID" in out and "MISMATCH" not in out, f"validate_intervals: {out}")
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            list_intervals.main(["--data-dir", str(data)])
+        require(all(f"{m['interval_id']}: " in buf.getvalue() for m in metas),
+                f"list_intervals: {buf.getvalue()}")
+        print(f"ingest validate_intervals (python -m, all {len(metas)} intervals, 3 keyframes "
+              f"each re-extracted on the card): VALID, {val_s:.3f} s; list_intervals:\n"
+              + buf.getvalue().rstrip())
+        t0 = _phase("ingest_validate", t0)
+
+        # where an extracted frame's time goes: each stage alone, on the
+        # second interval's frames
+        with VideoReader(str(y4m), a1) as rd:
+            start = time.perf_counter()
+            bufs = [rd.read_i420() for _ in range(INGEST_STAGE_FRAMES)]
+            decode_ms = (time.perf_counter() - start) * 1e3 / INGEST_STAGE_FRAMES
+        upload_ms = time_ms(lambda: torch.from_numpy(bufs[0]).to(dev), 10)
+        planes = torch.from_numpy(bufs[0]).to(dev)
+        convert_ms = time_ms(lambda: i420_to_rgb(planes, sh, sw), 10)
+        rgb = i420_to_rgb(planes, sh, sw)
+        fit_ms = time_ms(lambda: xi.fit_frame(rgb, INGEST_OUT), 10)
+        fitted = xi.fit_frame(rgb, INGEST_OUT)
+        readback_ms = time_ms(lambda: fitted.cpu(), 10)
+        host = fitted.cpu().numpy()
+        start = time.perf_counter()
+        for i in range(INGEST_STAGE_FRAMES):
+            write_png(root / f"stage_{i}.png", host)
+        encode_ms = (time.perf_counter() - start) * 1e3 / INGEST_STAGE_FRAMES
+        # the earlier writer's encode (unfiltered rows, zlib's default
+        # strategy at level 1), on the same frame, for the comparison
+        rows0 = np.zeros((oh, 1 + host[0].size), np.uint8)
+        rows0[:, 1:] = host.reshape(oh, -1)
+        start = time.perf_counter()
+        for _ in range(INGEST_STAGE_FRAMES):
+            zlib.compress(rows0.tobytes(), 1)
+        encode0_ms = (time.perf_counter() - start) * 1e3 / INGEST_STAGE_FRAMES
+        gray = torch.stack([rgb_to_gray(xi.fit_frame(i420_to_rgb(torch.from_numpy(b).to(dev),
+                                                                   sh, sw), INGEST_OUT))
+                            for b in bufs[:3:2]])
+        small = resize(gray[..., None], (oh // 2, ow // 2), "linear")[..., 0].float()
+        flow_ms = time_ms(lambda: farneback_flow(small[:1], small[1:]), 5)
+        xi.motion_stats(gray)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(5):
+            xi.motion_stats(gray)
+        stats_ms = (time.perf_counter() - start) * 1e3 / 5
+        per_frame = decode_ms + upload_ms + convert_ms + fit_ms + readback_ms + encode_ms
+        print(f"ingest stages per {sw}x{sh} source frame ({card}): decode (read_i420, host) "
+              f"{decode_ms:.3f} ms, upload {upload_ms:.3f}, I420 -> RGB {convert_ms:.3f}, crop + "
+              f"Lanczos4 to {ow}x{oh} {fit_ms:.3f}, read-back {readback_ms:.3f}, PNG encode "
+              f"(host: Sub rows, zlib level 1, Z_RLE) {encode_ms:.3f} (unfiltered rows, the "
+              f"default strategy: {encode0_ms:.3f}); Farneback per pair at {ow // 2}x{oh // 2} "
+              f"(CUDA events) {flow_ms:.3f} ms, motion_stats per pair (host clock: gray resize, "
+              f"Farneback, read-back, numpy statistics) {stats_ms:.3f} ms")
+        print(f"ingest model of the extraction: {n_read} frames x {per_frame:.3f} ms + {n_pairs} "
+              f"pairs x {stats_ms:.3f} ms = {(n_read * per_frame + n_pairs * stats_ms) / 1e3:.3f} s "
+              f"(PNG encode {n_read * encode_ms / 1e3:.3f} s, motion {n_pairs * stats_ms / 1e3:.3f} "
+              f"s) against {extract_s:.3f} s measured")
+        del bufs, planes, rgb, fitted, gray, small
+        t0 = _phase("ingest_stages", t0)
+
+        # 4. preprocess, through the CLI (it prints the processing's seconds)
+        n_in = -(-INGEST_FRAMES * INGEST_IN_FPS // INGEST_FPS)
+        out, cli_s = run_cli(["vfisr_tpu_torch.preprocess_video", y4m, "--clip-name",
+                              INGEST_CLIP, "--output-dir", root / "processed",
+                              "--input-resolution", f"{ow}x{oh}", "--input-fps", INGEST_IN_FPS,
+                              "--target-resolution", f"{sw}x{sh}", "--target-fps", INGEST_FPS],
+                             "preprocess_video")
+        pre_s = float(out.rsplit(" in ", 1)[1].split()[0])
+        clip = root / "processed" / INGEST_CLIP
+        md = json.loads((clip / "metadata.json").read_text())
+        triplets = json.loads((clip / "triplets.json").read_text())
+        want = want_triplets(n_in, INGEST_FRAMES, INGEST_FPS / INGEST_IN_FPS)
+        require((md["num_input_frames"], md["num_gt_frames"], md["num_triplets"])
+                == (n_in, INGEST_FRAMES, len(want)), f"processed counts {md}")
+        require(triplets == want and triplets[0]["temporal_positions"] == [0.25, 0.5, 0.75],
+                "triplets.json equals the formula")
+        with VideoReader(str(y4m)) as rd:
+            for k in range(INGEST_FRAMES):
+                require(np.array_equal(read_png(clip / "ground_truth" / "frames"
+                                                / f"frame_{k:05d}.png"), rd.read()),
+                        f"GT frame {k} equals its decoded source frame")
+        print(f"ingest preprocess (python -m vfisr_tpu_torch.preprocess_video, {sw}x{sh}@"
+              f"{INGEST_FPS} -> input {ow}x{oh}@{INGEST_IN_FPS}, GT {sw}x{sh}@{INGEST_FPS}): "
+              f"{n_in} input frames, {INGEST_FRAMES} GT frames (each equal to its decoded source "
+              f"frame), {len(want)} triplets equal to the formula; processing {pre_s:.3f} s = "
+              f"{INGEST_FRAMES / pre_s:.2f} source fps ({cli_s:.3f} s with the process's start); "
+              f"{card}")
+        t0 = _phase("ingest_preprocess", t0)
+
+        # 5. the triplet benchmark on the processed clip, every K1 launch
+        # checked as it goes
+        checks = []
+        kw.warp_windowed = _checking(kw, checks)
+        try:
+            start = time.perf_counter()
+            out = tr.run_benchmarks(root / "processed", root / "triplet", models=INGEST_MODELS,
+                                    warmup=1, device="cuda")
+            triplet_s = time.perf_counter() - start
+        finally:
+            kw.warp_windowed = real_warp
+        max_err = max(max_err, _require_checks(checks, "ingest triplet run"))
+        del checks
+        rows = out["results"][INGEST_CLIP]
+        require(list(rows) == INGEST_MODELS.split(","), f"triplet rows {list(rows)}")
+        for name, r in rows.items():
+            require("error" not in r and r["num_triplets"] == len(want),
+                    f"ingest triplet {name}: {r.get('error', r.get('num_triplets'))}")
+            q, sp = r["quality_summary"], r["speed_summary"]
+            require(all(math.isfinite(q[m]["mean"]) for m in ("psnr", "ssim", "lpips")),
+                    f"ingest triplet {name} quality finite")
+            print(f"ingest triplet {name}: {r['num_triplets']} triplets, psnr "
+                  f"{q['psnr']['mean']:.4f} dB, ssim {q['ssim']['mean']:.4f}, lpips "
+                  f"{q['lpips']['mean']:.4f}; time_ms mean {sp['time_ms']['mean']:.3f}, p50 "
+                  f"{sp['time_ms']['p50']:.3f} (its launches checked against the twins); {card}")
+        print(f"ingest triplet run: {triplet_s:.3f} s (host clock, twins included)")
+        t0 = _phase("ingest_triplet", t0)
+
+        # 6. the full benchmark over the registered clip, then the analyses
+        full = root / "full"
+        _, full_s = run_cli(["vfisr_tpu_torch.run_full_benchmark", "--data-dir", data,
+                             "--output-dir", full], "run_full_benchmark", timeout=600)
+        results = json.loads((full / "experiment_results.json").read_text())
+        log = (full / "experiment_log.txt").read_text()
+        per = {}
+        for r in results["experiments"]:
+            per.setdefault(r["interval_idx"], []).append(r)
+        require("FAILED" not in log and sorted(per) == list(range(len(metas)))
+                and all(len(v) == 12 for v in per.values()),
+                f"run_full_benchmark rows per interval {[len(v) for v in per.values()]}")
+        for i, v in sorted(per.items()):
+            by = {r["name"]: r for r in v}
+            print(f"ingest full benchmark interval {i}: {len(v)} rows; vfi_psnr_db degraded "
+                  f"{by['degraded']['vfi_psnr_db']}, lanczos_blend {by['lanczos_blend']['vfi_psnr_db']}, "
+                  f"optical_flow_basic {by['optical_flow_basic']['vfi_psnr_db']}, uafi_default "
+                  f"{by['uafi_default']['vfi_psnr_db']}, ughi_default "
+                  f"{by['ughi_default']['vfi_psnr_db']}; time_s sum "
+                  f"{sum(r['time_s'] for r in v):.3f}")
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            from vfisr_tpu_torch import analyze_statistics
+
+            analyze_statistics.main(["--results", str(full / "experiment_results.json"),
+                                     "--output-dir", str(full)])
+        report = json.loads((full / "statistical_analysis.json").read_text())
+        norm = normalize_data.run(full / "experiment_results.json", full)
+        final = final_analysis.run(full / "experiment_results.json", full)
+        for m in ("uafi_default", "ughi_default"):
+            v, t = report["novel_verdicts"][m], report["methods"][m]["paired_t"]
+            require(t["n"] == len(metas) and v["mean_gain_db"] is not None
+                    and v["confidence"] in ("significant", "not significant"),
+                    f"statistics of {m}: {v}, {t}")
+            print(f"ingest statistics {m}: gain {v['mean_gain_db']:+.4f} dB over degraded, "
+                  f"n {t['n']}, p {v['p_value']}, {v['confidence']}; normalized gain "
+                  f"{norm['methods'][m]['mean_gain_db']:+.4f} dB, time_ratio "
+                  f"{norm['methods'][m]['time_ratio']:.4f}")
+        require(set(statistical_analysis.NOVEL_METHODS) & set(final["novel_methods"])
+                == {"uafi_default", "ughi_default"}, "final_analysis's novel methods")
+        print(f"ingest full benchmark (python -m vfisr_tpu_torch.run_full_benchmark, light "
+              f"experiments, {len(metas)} intervals at the default quality): {full_s:.3f} s with "
+              f"both processes' start; analyze_statistics, normalize_data and final_analysis "
+              f"written; {card}")
+        t0 = _phase("ingest_full_benchmark", t0)
+
+        # 7. the quality CLI on an interval's keyframes against its midpoints
+        _, q_s = run_cli(["vfisr_tpu_torch.evaluate_quality", "--pred-dir", idir1 / "keyframes",
+                          "--gt-dir", idir1 / "midpoints", "--comprehensive", "--output",
+                          root / "quality.json"], "evaluate_quality")
+        q = json.loads((root / "quality.json").read_text())
+        require(q["frames"] == metas[1]["midpoint_count"] and "comprehensive" in q
+                and math.isfinite(q["psnr"]), f"evaluate_quality's JSON {sorted(q)}")
+        print(f"ingest evaluate_quality --comprehensive ({q['frames']} frames): psnr "
+              f"{q['psnr']:.4f} dB, ssim {q['ssim']:.4f}, lpips {q['lpips']:.4f}; {q_s:.3f} s "
+              f"with the process's start")
+        t0 = _phase("ingest_quality", t0)
+
+        total = _k1_by_shape(kw, "ingest", "run", firsts, counts)
+        del firsts
+        _phase("ingest_k1_timing", t0)
+        return path_numbers(launches, max_err, total, 1)
+    finally:
+        tmp.cleanup()
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2957,13 +3384,14 @@ def main() -> int:
     k1_bench = bench_phase(kw, totals)
     k1_sweep = sweep_phase(kw, card)
     k1_triplet = triplet_phase(kw, card)
+    k1_ingest = ingest_phase(kw, card)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
     print(json.dumps({"kernels": [
         kernel_entry("warp_windowed", [k1_flagship, k1_stream_flagship, k1_train, k1_adaptive,
                                        k1_stream_adaptive, k1_safa, k1_safa_train, k1_evaluation,
-                                       k1_bench, k1_sweep, k1_triplet]),
+                                       k1_bench, k1_sweep, k1_triplet, k1_ingest]),
         kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

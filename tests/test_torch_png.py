@@ -120,7 +120,7 @@ def test_cv2_reads_what_write_png_writes(tmp_path, gray):
     (n,) = struct.unpack(">I", data[33:37])  # the one IDAT, after the signature and IHDR
     assert data[37:41] == b"IDAT"
     stride = 1 + (img.shape[1] if gray else img[0].size)
-    assert zlib.decompress(data[41:41 + n])[::stride] == bytes(img.shape[0])  # filter 0 rows
+    assert zlib.decompress(data[41:41 + n])[::stride] == bytes([1]) * img.shape[0]  # Sub rows
 
 
 def test_unsupported_pngs_raise(tmp_path):

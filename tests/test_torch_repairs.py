@@ -62,10 +62,19 @@ def _benchmark_cli(tmp):
     main(["-d", str(tmp), "-o", str(tmp / "out"), "-m", "lanczos", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("entry", [_sweep, _benchmarks, _experiments_cli, _benchmark_cli])
+def _extract_cli(tmp):
+    from vfisr_tpu_torch.extract_intervals import main
+
+    with pytest.raises(ValueError, match="not found"):  # no clip registered
+        main(["--clip-id", "none", "--data-dir", str(tmp), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("entry", [_sweep, _benchmarks, _experiments_cli, _benchmark_cli,
+                                   _extract_cli])
 def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
-    """The sweep, the triplet benchmark and their CLIs turn TF32 off before
-    any work (here each stops early: no interval, no clip)."""
+    """The sweep, the triplet benchmark, the interval extraction (Farneback's
+    f32 convolutions) and their CLIs turn TF32 off before any work (here
+    each stops early: no interval, no clip)."""
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
         entry(tmp_path)

@@ -13,8 +13,9 @@ decode together (Sub is a cumulative sum mod 256 along the row); Up rows
 take the row above. Average and Paeth depend on the pixel to the left as
 well as the row above, so a run of such rows decodes along anti-diagonals
 (every pixel of a diagonal depends only on earlier diagonals), one numpy
-step per diagonal. ``write_png`` writes filter 0 (None) rows, so what it
-writes reads back on the fast path.
+step per diagonal. ``write_png`` writes what ``cv2.imwrite`` writes by
+default: Sub rows, deflated at level 1 with the run-length strategy
+(Z_RLE); they read back on the fast path.
 """
 
 from __future__ import annotations
@@ -144,16 +145,22 @@ def _chunk(ctype: bytes, payload: bytes) -> bytes:
 
 
 def write_png(path, image: np.ndarray) -> None:
-    """Write HWC uint8 RGB (or HW uint8 gray) as an 8-bit PNG with filter 0
-    rows."""
+    """Write HWC uint8 RGB (or HW uint8 gray) as an 8-bit PNG: Sub rows,
+    zlib level 1 with Z_RLE, cv2.imwrite's defaults (on the H100 host about
+    twice as fast as zlib's default strategy on unfiltered rows, PERF.md)."""
     img = np.asarray(image)
     if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
         raise ValueError(f"write_png takes HxW or HxWx3 uint8, got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
-    color = 0 if img.ndim == 2 else 2
-    rows = np.zeros((h, 1 + img[0].size), np.uint8)
-    rows[:, 1:] = img.reshape(h, -1)
+    color, bpp = (0, 1) if img.ndim == 2 else (2, 3)
+    px = img.reshape(h, -1)
+    rows = np.empty((h, 1 + px.shape[1]), np.uint8)
+    rows[:, 0] = 1  # Sub: each byte less the byte one pixel to its left, mod 256
+    rows[:, 1:1 + bpp] = px[:, :bpp]
+    np.subtract(px[:, bpp:], px[:, :-bpp], out=rows[:, 1 + bpp:])
+    deflate = zlib.compressobj(1, zlib.DEFLATED, 15, 8, zlib.Z_RLE)
+    idat = deflate.compress(rows.tobytes()) + deflate.flush()
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
     with open(path, "wb") as f:
-        f.write(SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
+        f.write(SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", idat)
+                + _chunk(b"IEND", b""))

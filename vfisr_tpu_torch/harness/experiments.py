@@ -226,11 +226,12 @@ def generate_reference(video_path: str, start_s: float, duration: float = 5.0,
                        output_resolution=(1920, 1080), extract_midpoints: bool = True,
                        device: str = "cuda"):
     """Keyframes and midpoints of a raw video (legacy mode): each frame
-    cropped to 16:9 and resized to output_resolution (Lanczos4, on device);
-    even frames are keyframes, odd ones midpoints. Read through the port's
-    ``VideoReader`` (Y4M without OpenCV). Returns (keyframes, midpoints) as
-    lists of HWC uint8 RGB."""
-    from vfisr_tpu_torch.data.extract_intervals import crop16_9
+    cropped to 16:9 and resized to output_resolution (Lanczos4), on device
+    as the interval extraction does it (a Y4M frame's I420 -> RGB there
+    too); even frames are keyframes, odd ones midpoints. Read through the
+    port's ``VideoReader`` (Y4M without OpenCV). Returns (keyframes,
+    midpoints) as lists of HWC uint8 RGB."""
+    from vfisr_tpu_torch.data.extract_intervals import fit_frame
 
     probe = VideoReader(video_path)
     fps = float(probe.fps) or 30.0
@@ -238,12 +239,10 @@ def generate_reference(video_path: str, start_s: float, duration: float = 5.0,
     keyframes, midpoints = [], []
     with VideoReader(video_path, start_frame=int(start_s * fps)) as reader:
         for idx in range(int(duration * fps)):
-            frame = reader.read()
+            frame = reader.read_to(device)
             if frame is None:
                 break
-            frame = crop16_9(frame)
-            if (frame.shape[1], frame.shape[0]) != tuple(output_resolution):
-                frame = _resize_u8(frame, output_resolution, "lanczos4", device)
+            frame = fit_frame(frame, output_resolution).cpu().numpy()
             if idx % 2 == 0:
                 keyframes.append(frame)
             elif extract_midpoints:
