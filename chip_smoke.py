@@ -260,15 +260,38 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    vfisr_tpu_torch.evaluate_quality --comprehensive`` on interval 1's
    keyframes against its midpoints. Prints each stage's seconds, fps of
    extraction and of preprocessing, peak memory, each interval's mean_flow
-   against its known displacement, and K1 per launch shape.
+   against its known displacement, and K1 per launch shape;
+22. trains on step 21's processed clip ("training data": 9 triplets, 27
+   entries, 1920x1080 inputs, 2560x1440 ground truth; the directory lives
+   until this step ends), all in this process. TripletCropDataset's first
+   batch on the card (16 crops of 192^2, t 0.25/0.5/0.75): every crop, GT
+   and t equal to the CPU's read_png, area resize and crop at a fresh
+   random.Random(seed) replay of its draws, and read_png ms per 1080p and
+   per 1440p frame. Then the trainer's run() at full width, batch 16, crop
+   192: ``--model rife --data <clip> --steps 3``, and ``--data-source
+   host`` for rife (4 steps: a fresh batch, then three augmented), span_x4
+   (2) and safa (2); every K1 and K2 launch held against its twin (and K1's
+   origins against window_origins) as it goes, counted with
+   ``window_origins`` raising (8 K1 and 4 K2 per RIFE step, 16 and 6 per
+   SAFA step: no data warps), finite losses, a checkpoint each; prints ms
+   per step and the step loop's wait on the producer's queue per step, and
+   synthetic_batch and augment_vfi_batch ms at batch 16, crop 192.
+   eval_vfi_quality and eval_sr_quality (both scenes) at their defaults on
+   the card (their tables; every PSNR and SSIM finite; the SR models
+   launch no warp). gate_checkpoint on copies in a temporary directory: the
+   3-step --data checkpoint as the candidate against a copy of
+   weights/rife.npz as --incumbent-weights, --samples 8: its record, and
+   the file at --weights afterwards byte-equal to whichever scored higher.
+   No file under weights/ is written or moved. K1 and K2 per launch shape
+   over the whole step.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
 it (K1: the flagship pairs, the flagship stream, the RIFE train steps, the
 adaptive sequence, the adaptive stream, the SAFA pairs, the SAFA train
-steps, the evaluation, the bench, the sweep, the triplet benchmark and the
-counted extraction of the ingest; K2:
-the RIFE and the SAFA train steps)
+steps, the evaluation, the bench, the sweep, the triplet benchmark, the
+counted extraction of the ingest and step 22's trainer, evaluation and gate
+runs; K2: the RIFE and the SAFA train steps and step 22's trainer runs)
 and the device time, bound, plain-twin and grid_sample time of exactly
 those launches (a stream's and the bench's launches at their shapes' times
 from steps 7 and 9). The last line is {"ok": true, "device": {...}}.
@@ -2305,6 +2328,18 @@ def evaluation_phase(kw) -> dict:
     return path_numbers(launches, max_err, total, 1)
 
 
+def _twin(kw, fn, *args):
+    """A plain twin's call, with window_origins in place for it (the twins
+    compute their windows with it; a run may hold the kernels' path to
+    never reaching it: ``origin_table_raises``)."""
+    held = kw.window_origins
+    kw.window_origins = ORIGIN_TABLE
+    try:
+        return fn(*args)
+    finally:
+        kw.window_origins = held
+
+
 def _checking(kw, checks: list):
     """K1's wrapper, holding each launch against its plain twin and its
     origins against window_origins as it goes (no copies kept): appends
@@ -2313,7 +2348,7 @@ def _checking(kw, checks: list):
 
     def checking(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
         out = real(img, flow, t, r, border, compute_dtype)
-        ref = kw.warp_windowed_plain(img, flow, t, r, border, compute_dtype)
+        ref = _twin(kw, kw.warp_windowed_plain, img, flow, t, r, border, compute_dtype)
         base = 2.0 / 255.0 if compute_dtype == torch.bfloat16 else 1e-5
         ry, rx = (r, r) if isinstance(r, int) else r
         t_arr = torch.as_tensor(t, dtype=torch.float32, device=flow.device)
@@ -2419,24 +2454,28 @@ def _require_checks(checks: list, label: str) -> float:
     return max_err
 
 
-def _k1_by_shape(kw, label: str, unit: str, firsts: dict, counts: dict) -> dict:
-    """K1's per-shape lines of a counted run, and the run's totals."""
+def _kernel_by_shape(kw, label: str, unit: str, firsts: dict, counts: dict,
+                     grad: bool = False) -> dict:
+    """K1's (grad: K2's) per-shape lines of a counted run, and the run's
+    totals."""
+    timer = time_grad_launch if grad else time_launch
     by_shape = {}
     for (_, key), n in counts.items():
         if key not in by_shape:
-            by_shape[key] = dict(n=0, **time_launch(kw, firsts[key]))
+            by_shape[key] = dict(n=0, **timer(kw, firsts[key]))
         by_shape[key]["n"] += n
+    name = "K2" if grad else "K1"
     for key, v in by_shape.items():
-        print(f"{label} launch shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} "
-              f"r={key[3]} {key[4]} x{v['n']}/{unit}: kernel {v['kernel']:.4f} ms, bound "
-              f"{v['bound']:.4f} ms ({v['by']}), wrapper host {v['host']:.4f} ms, wrapper "
-              f"{v['wrapper']:.4f} ms, plain {v['plain']:.4f} ms, grid_sample "
-              f"{v['library']:.4f} ms")
-        print_grouped(kw, label, unit, key, firsts[key], v, grad=False)
+        print(f"{label} {name} launch shape {key[0]} {str(key[1])[6:]} window "
+              f"{str(key[2])[6:]} r={key[3]} {key[4]} x{v['n']}/{unit}: kernel "
+              f"{v['kernel']:.4f} ms, bound {v['bound']:.4f} ms ({v['by']}), wrapper host "
+              f"{v['host']:.4f} ms, wrapper {v['wrapper']:.4f} ms, plain {v['plain']:.4f} ms, "
+              f"grid_sample{' grad' if grad else ''} {v['library']:.4f} ms")
+        print_grouped(kw, label, unit, key, firsts[key], v, grad=grad)
     fields = ("kernel", "bound", "host", "wrapper", "plain", "library")
     total = {f: sum(v["n"] * v[f] for v in by_shape.values()) for f in fields}
     total["by"] = "bytes" if {v["by"] for v in by_shape.values()} == {"bytes"} else "operations"
-    print(f"{label} K1: {sum(v['n'] for v in by_shape.values())} launches in "
+    print(f"{label} {name}: {sum(v['n'] for v in by_shape.values())} launches in "
           f"{len(by_shape)} shapes, " + ", ".join(f"{f} {total[f]:.4f} ms" for f in fields))
     return total
 
@@ -2689,7 +2728,7 @@ def sweep_phase(kw, card: str) -> dict:
         del interval
         t0 = _phase("sweep_timing", t0)
 
-        total = _k1_by_shape(kw, "sweep", "sweep", firsts, counts)
+        total = _kernel_by_shape(kw, "sweep", "sweep", firsts, counts)
         del firsts
         _phase("sweep_k1_timing", t0)
         return path_numbers(launches, max_err, total, 1)
@@ -2799,7 +2838,7 @@ def triplet_phase(kw, card: str) -> dict:
               "then -m bicubic --merge: both rows in benchmark_results.json")
         t0 = _phase("triplet_cli", t0)
 
-        total = _k1_by_shape(kw, "triplet", "run", firsts, counts)
+        total = _kernel_by_shape(kw, "triplet", "run", firsts, counts)
         _phase("triplet_k1_timing", t0)
         return path_numbers(launches, max_err, total, 1)
     finally:
@@ -2867,9 +2906,11 @@ def want_triplets(n_in: int, n_gt: int, scale: float) -> list:
     return out
 
 
-def ingest_phase(kw, card: str) -> dict:
+def ingest_phase(kw, card: str) -> tuple:
     """Step 21 of the module docstring. Returns K1's numbers over the
-    counted extraction's launches."""
+    counted extraction's launches, and the temporary directory that holds
+    the processed clip (``processed/``) for step 22: the caller cleans it
+    up."""
     import contextlib as cl
     import io
     import shutil
@@ -3191,12 +3232,265 @@ def ingest_phase(kw, card: str) -> dict:
               f"with the process's start")
         t0 = _phase("ingest_quality", t0)
 
-        total = _k1_by_shape(kw, "ingest", "run", firsts, counts)
+        total = _kernel_by_shape(kw, "ingest", "run", firsts, counts)
         del firsts
         _phase("ingest_k1_timing", t0)
-        return path_numbers(launches, max_err, total, 1)
+        return path_numbers(launches, max_err, total, 1), tmp
+    except BaseException:
+        tmp.cleanup()
+        raise
+
+
+# the training-data phase: step 21's processed clip (9 triplets, 27 entries,
+# 1920x1080 inputs, 2560x1440 ground truth) through TripletCropDataset and
+# the trainer's --data, the host scene generators through --data-source
+# host, then the held-out evaluation and gate CLIs, all in this process
+DATA_BATCH, DATA_CROP, DATA_SEED = 16, 192, 0
+DATA_STEPS = 3  # --data steps of full-width RIFE
+HOST_STEPS = (("rife", 4), ("span_x4", 2), ("safa", 2))  # --data-source host
+DATA_ENTRIES = 27
+K1_PER_DATA_STEP = {"rife": K1_PER_STEP - 2, "safa": K1_PER_SAFA_STEP - 2}  # no data warps
+K2_PER_DATA_STEP = {"rife": K2_PER_STEP, "safa": K2_PER_SAFA_STEP}
+GATE_SAMPLES = 8
+
+
+def _checking_grad(kw, checks: list, firsts: dict, counts: dict, tag: dict):
+    """K2's wrapper, holding each launch against its plain twin as it goes
+    (error, tolerance, largest |cg|: device tensors in checks), counting it
+    by (tag["name"], shape) and keeping a clone of each shape's first launch
+    for the per-shape timing."""
+    real = kw.warp_windowed_grad
+
+    def checking(img, flow, t, ct, r=8, border="replicate", compute_dtype=torch.float32):
+        gflow, cg = real(img, flow, t, ct, r, border, compute_dtype)
+        ref_gflow, ref_cg = _twin(kw, kw.warp_windowed_grad_plain, img, flow, t, ct, r, border,
+                                  compute_dtype)
+        base = 2.0 / 255.0 if compute_dtype == torch.bfloat16 else 1e-5
+        scale = ref_cg.abs().max()
+        checks.append((torch.maximum((gflow.float() - ref_gflow.float()).abs().max(),
+                                     (cg - ref_cg).abs().max()), base * scale, scale))
+        a = dict(img=img, flow=flow, t=t, r=r, border=border, compute_dtype=compute_dtype)
+        key = shape_key(a)
+        if key not in firsts:
+            firsts[key] = dict(a, img=img.clone(), flow=flow.clone(), ct=ct.contiguous().clone(),
+                               t=t.clone() if torch.is_tensor(t) else t)
+        counts[(tag["name"], key)] = counts.get((tag["name"], key), 0) + 1
+        return gflow, cg
+
+    return checking
+
+
+def _require_grad_checks(checks: list, label: str) -> float:
+    """Every K2 launch of a checked run within its tolerance of the twin
+    (relative to its largest |cg|, which must not be 0); returns the largest
+    error."""
+    err, tol, scale = (torch.stack(v) for v in zip(*checks))
+    max_err = err.max().item()
+    require(bool((scale > 0).all()) and bool((err <= tol).all()),
+            f"{label}: K2 vs twin at every launch (max_abs_err {max_err:.3e})")
+    print(f"{label}: {len(checks)} K2 launches, each within its tolerance of the twin "
+          f"(max_abs_err {max_err:.3e})")
+    return max_err
+
+
+def _weights_state() -> dict:
+    """Each file under weights/ with its size and modification time."""
+    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted((ROOT / "weights").iterdir()) if p.is_file()}
+
+
+def data_phase(kw, card: str, processed: Path) -> tuple:
+    """Step 22 of the module docstring. Returns K1's and K2's numbers over
+    the phase's counted launches."""
+    import contextlib as cl
+    import hashlib
+    import io
+    import random
+    import shutil
+
+    from vfisr_tpu_torch import eval_sr_quality, eval_vfi_quality
+    from vfisr_tpu_torch import gate_checkpoint as gate
+    from vfisr_tpu_torch.core.resize import resize
+    from vfisr_tpu_torch.data.png import read_png
+    from vfisr_tpu_torch.train import __main__ as train_cli
+    from vfisr_tpu_torch.train.data import (TripletCropDataset, augment_vfi_batch,
+                                            synthetic_batch)
+
+    t0 = time.perf_counter()
+    weights_before = _weights_state()
+    c = DATA_CROP
+
+    # 1. the dataset's first batch, on the card, against a replay of its
+    # draws on the CPU
+    ds = TripletCropDataset(processed, crop=c, seed=DATA_SEED, device="cuda")
+    require(len(ds) == DATA_ENTRIES, f"{len(ds)} triplet entries")
+    start = time.perf_counter()
+    batch = next(ds.batches(DATA_BATCH, 1))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - start
+    rng = random.Random(DATA_SEED)
+    read_ms = {}
+    for i in range(DATA_BATCH):
+        e = rng.choice(ds.entries)
+        frames = []
+        for k in ("f0", "f1", "gt"):
+            start = time.perf_counter()
+            f = read_png(e[k])
+            read_ms.setdefault(f.shape[:2], []).append((time.perf_counter() - start) * 1e3)
+            frames.append(torch.from_numpy(f))
+        h, w = frames[0].shape[:2]
+        frames[2] = resize(frames[2], (h, w), "area")
+        y, x = rng.randint(0, max(h - c, 0)), rng.randint(0, max(w - c, 0))
+        for k, f in zip(("img0", "img1", "gt"), frames):
+            # as bytes: the card divides by 255 as a product with its
+            # reciprocal, which can leave the last bit of the float apart
+            got = torch.round(batch[k][i].cpu() * 255.0).to(torch.uint8)
+            require(torch.equal(got, f[y:y + c, x:x + c]),
+                    f"dataset sample {i} {k}: the CPU's read, area resize and crop at the "
+                    f"replayed draw ({y}, {x})")
+        require(batch["t"][i].item() == e["t"], f"dataset sample {i} t")
+    require(ds.rng.getstate() == rng.getstate(), "the dataset's draws equal the replay's")
+    per = {hw: sum(v) / len(v) for hw, v in read_ms.items()}
+    print(f"data TripletCropDataset first batch ({DATA_BATCH} x {c}^2, t "
+          f"{sorted(set(batch['t'].tolist()))}): {batch_s:.3f} s (host clock: 3 PNG reads, the "
+          f"GT's area resize on the card and the crops per sample); each crop's bytes, GT and t "
+          f"equal to the CPU's read, area resize and crop at a fresh random.Random({DATA_SEED}) "
+          "replay; "
+          "read_png per frame (host) " + ", ".join(
+              f"{w}x{h} {v:.3f} ms (n {len(read_ms[(h, w)])})" for (h, w), v in sorted(per.items()))
+          + f"; {card}")
+    del batch
+    t0 = _phase("data_dataset", t0)
+
+    # 2. the trainer, in process, at full width: K1 and K2 held against their
+    # twins at every launch as it goes, counted with window_origins raising
+    checks1, checks2, firsts1, counts1, firsts2, counts2 = [], [], {}, {}, {}, {}
+    tag = {}
+    real_warp, real_grad = kw.warp_windowed, kw.warp_windowed_grad
+
+    def counted(label: str, fn):
+        tag["name"] = label
+        kw.warp_windowed = _checking(kw, checks1)
+        kw.warp_windowed = _shape_counter(kw, firsts1, counts1, tag)
+        kw.warp_windowed_grad = _checking_grad(kw, checks2, firsts2, counts2, tag)
+        n1, n2 = len(checks1), len(checks2)
+        try:
+            with origin_table_raises(kw):
+                kw.launches = kw.grad_launches = 0
+                out = fn()
+                torch.cuda.synchronize()
+                k1, k2 = kw.launches, kw.grad_launches
+        finally:
+            kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
+        require(k1 == len(checks1) - n1 and k2 == len(checks2) - n2,
+                f"{label}: {k1} K1 and {k2} K2 launches, each checked")
+        return out, k1, k2
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
+    root = Path(tmp.name)
+    try:
+        common = ["--batch", str(DATA_BATCH), "--crop", str(c), "--seed", str(DATA_SEED),
+                  "--log-every", "1"]
+        runs = [("rife", DATA_STEPS, ["--data", str(processed)], "triplets")]
+        runs += [(m, n, ["--data-source", "host"], "host scenes") for m, n in HOST_STEPS]
+        data_out = None
+        for model, steps, source, what in runs:
+            out = root / f"{model}_{what.split()[0]}.npz"
+            buf = io.StringIO()
+            with cl.redirect_stdout(buf):
+                res, k1, k2 = counted(f"train {model} {what}", lambda: train_cli.run(
+                    ["--model", model, "--steps", str(steps), "--out", str(out), *source,
+                     *common]))
+            losses = [float(ln.split("loss ")[1].split()[0]) for ln in buf.getvalue().splitlines()
+                      if ln.startswith("step ")]
+            require(out.is_file() and len(losses) == steps
+                    and all(math.isfinite(v) for v in losses), f"{model} on {what}: {losses}")
+            want1 = K1_PER_DATA_STEP.get(model, 0) * steps
+            want2 = K2_PER_DATA_STEP.get(model, 0) * steps
+            require(k1 == want1 and k2 == want2,
+                    f"{model} on {what}: {k1} K1 and {k2} K2 launches, {want1} and {want2} wanted")
+            step_ms = [v * 1e3 for v in res["step_s"]]
+            wait_ms = [v * 1e3 for v in res["wait_s"]]
+            print(f"data train {model} on {what} (python -m vfisr_tpu_torch.train {' '.join(source)}"
+                  f", batch {DATA_BATCH}, crop {c}, in process): {steps} steps, losses "
+                  f"{', '.join(f'{v:.5f}' for v in losses)}; ms per step (host clock, K1 and K2 "
+                  f"checked against their twins as they go) first {step_ms[0]:.3f}, then "
+                  f"{', '.join(f'{v:.3f}' for v in step_ms[1:])}; the step loop's wait on the "
+                  f"queue per step first {wait_ms[0]:.3f} ms, then "
+                  f"{', '.join(f'{v:.3f}' for v in wait_ms[1:])}; K1 {k1}, K2 {k2} launches; "
+                  f"{card}")
+            if what == "triplets":
+                data_out = out
+            t0 = _phase(f"data_train_{model}_{what.split()[0]}", t0)
+
+        # the host generators alone, at the trainer's batch and crop
+        gen = np.random.default_rng(DATA_SEED)
+        start = time.perf_counter()
+        scenes = synthetic_batch(gen, DATA_BATCH, c)
+        scene_ms = (time.perf_counter() - start) * 1e3
+        start = time.perf_counter()
+        for _ in range(10):
+            augment_vfi_batch(gen, scenes)
+        augment_ms = (time.perf_counter() - start) * 1e2
+        print(f"data host generators (batch {DATA_BATCH}, crop {c}, host clock): synthetic_batch "
+              f"{scene_ms:.3f} ms ({scene_ms / DATA_BATCH:.3f} ms per scene), augment_vfi_batch "
+              f"{augment_ms:.3f} ms; {card}")
+        t0 = _phase("data_generators", t0)
+
+        # 3. the held-out evaluations at their defaults, on the card
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            vfi_rows, k1, _ = counted("eval_vfi_quality", lambda: eval_vfi_quality.main([]))
+            sr_rows, k1_sr, k2_sr = counted("eval_sr_quality", lambda: {
+                scene: eval_sr_quality.main(["--scene", scene]) for scene in ("smooth", "detail")})
+        print(buf.getvalue().rstrip())
+        rows = [*vfi_rows.values(), *(v for r in sr_rows.values() for v in r.values())]
+        require(set(vfi_rows) == {"rife", "lanczos", "optical_flow"} and k1 > 0
+                and all(len(r) == 4 for r in sr_rows.values()) and k1_sr == k2_sr == 0
+                and all(math.isfinite(v) for row in rows for v in row),
+                f"held-out PSNR and SSIM finite: {vfi_rows} {sr_rows}")
+        print(f"data eval_vfi_quality (defaults: 16 samples at 256^2; K1 {k1} launches, checked) "
+              f"and eval_sr_quality (defaults, smooth and detail scenes): every PSNR and SSIM "
+              f"finite; {card}")
+        t0 = _phase("data_eval", t0)
+
+        # 4. the gate, on copies: the --data checkpoint against the shipped
+        # weights/rife.npz
+        cand, inc = root / "gate" / "rife.npz", root / "gate" / "rife_shipped.npz"
+        cand.parent.mkdir()
+        shutil.copyfile(data_out, cand)
+        shutil.copyfile(ROOT / "weights" / "rife.npz", inc)
+        digest = {p: hashlib.sha256(p.read_bytes()).hexdigest() for p in (cand, inc)}
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            record, k1, _ = counted("gate_checkpoint", lambda: gate.main(
+                ["--candidate", "rife", "--incumbent", "rife", "--incumbent-weights", str(inc),
+                 "--weights", str(cand), "--demote-to", str(root / "gate" / "rife_aside.npz"),
+                 "--samples", str(GATE_SAMPLES), "--record", str(root / "gate" / "rec.json")]))
+        kept = record["decision"].startswith("kept")
+        better = cand if kept else inc
+        cand_db, inc_db = record["candidate_psnr_db"], record["incumbent_psnr_db"]
+        require(json.loads((root / "gate" / "rec.json").read_text()) == record
+                and (cand_db >= inc_db if kept else cand_db <= inc_db) and k1 > 0
+                and hashlib.sha256(cand.read_bytes()).hexdigest() == digest[better],
+                f"the gate's record and the file at --weights: {record}")
+        print(f"data gate_checkpoint (--samples {GATE_SAMPLES}, the {DATA_STEPS}-step --data "
+              f"checkpoint against a copy of weights/rife.npz; K1 {k1} launches, checked): "
+              f"{json.dumps(record)}; --weights now holds the "
+              f"{'candidate' if kept else 'incumbent'}'s bytes, the better score")
+        t0 = _phase("data_gate", t0)
     finally:
         tmp.cleanup()
+    require(_weights_state() == weights_before, "no file under weights/ written or moved")
+
+    err1 = _require_checks(checks1, "data phase")
+    err2 = _require_grad_checks(checks2, "data phase")
+    del checks1, checks2
+    total1 = _kernel_by_shape(kw, "data", "phase", firsts1, counts1)
+    total2 = _kernel_by_shape(kw, "data", "phase", firsts2, counts2, grad=True)
+    _phase("data_kernel_timing", t0)
+    return (path_numbers(sum(counts1.values()), err1, total1, 1),
+            path_numbers(sum(counts2.values()), err2, total2, 1))
 
 
 def main() -> int:
@@ -3384,15 +3678,19 @@ def main() -> int:
     k1_bench = bench_phase(kw, totals)
     k1_sweep = sweep_phase(kw, card)
     k1_triplet = triplet_phase(kw, card)
-    k1_ingest = ingest_phase(kw, card)
+    k1_ingest, ingest_tmp = ingest_phase(kw, card)
+    try:
+        k1_data, k2_data = data_phase(kw, card, Path(ingest_tmp.name) / "processed")
+    finally:
+        ingest_tmp.cleanup()
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
     print(json.dumps({"kernels": [
         kernel_entry("warp_windowed", [k1_flagship, k1_stream_flagship, k1_train, k1_adaptive,
                                        k1_stream_adaptive, k1_safa, k1_safa_train, k1_evaluation,
-                                       k1_bench, k1_sweep, k1_triplet, k1_ingest]),
-        kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train])]}))
+                                       k1_bench, k1_sweep, k1_triplet, k1_ingest, k1_data]),
+        kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train, k2_data])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

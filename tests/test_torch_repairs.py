@@ -1,4 +1,4 @@
-"""Two faults of the port against the reference, held repaired.
+"""Three faults of the port against the reference, held repaired.
 
 - TF32: every model's ``load`` turns cuDNN's and matmul's TF32 off, so f32
   configs keep the reference's f32 arithmetic on the card. ``rife`` and
@@ -8,9 +8,16 @@
   it.
 - ``core/frames.py::pad_to_multiple`` reflects as ``jnp.pad(mode="reflect")``
   does, also where a pad is as wide as the side (``F.pad`` refuses that).
+- The import rule: the port's device paths import torch, numpy and the
+  standard library, and none of scipy, pandas, matplotlib or yaml
+  (``evaluation/statistics.py`` imports scipy for the statistics only).
 
 Tolerance: the padded frames are equal, element for element.
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +27,8 @@ import torch
 from vfisr_tpu.core.frames import pad_to_multiple as jpad
 from vfisr_tpu_torch.core.frames import pad_to_multiple as tpad
 from vfisr_tpu_torch.models.registry import get_model
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -69,18 +78,65 @@ def _extract_cli(tmp):
         main(["--clip-id", "none", "--data-dir", str(tmp), "--device", "cpu"])
 
 
+def _eval_vfi_cli(tmp):
+    from vfisr_tpu_torch.eval_vfi_quality import main
+
+    main(["--models", "lanczos", "--samples", "1", "--crop", "64", "--device", "cpu"])
+
+
+def _eval_sr_cli(tmp):
+    from vfisr_tpu_torch.eval_sr_quality import main
+
+    main(["--models", "bicubic", "--samples", "1", "--crop", "64", "--device", "cpu"])
+
+
+def _gate_cli(tmp):
+    from vfisr_tpu_torch.gate_checkpoint import main
+
+    main(["--candidate", "rife", "--incumbent", "rife_lite", "--weights", str(tmp / "none.npz"),
+          "--demote-to", str(tmp / "aside.npz"), "--device", "cpu"])
+
+
 @pytest.mark.parametrize("entry", [_sweep, _benchmarks, _experiments_cli, _benchmark_cli,
-                                   _extract_cli])
+                                   _extract_cli, _eval_vfi_cli, _eval_sr_cli, _gate_cli])
 def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
     """The sweep, the triplet benchmark, the interval extraction (Farneback's
-    f32 convolutions) and their CLIs turn TF32 off before any work (here
-    each stops early: no interval, no clip)."""
+    f32 convolutions), their CLIs and the held-out evaluation and gate CLIs
+    turn TF32 off before any work (here the harnesses stop early: no
+    interval, no clip; the gate has no checkpoint to score)."""
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
         entry(tmp_path)
     except SystemExit:
         pass
     assert not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
+
+
+# the port's device paths: the streaming pipeline and its CLIs, the benches,
+# the harnesses and their CLIs, the trainer, the interval extraction and the
+# held-out evaluation and gate CLIs
+DEVICE_PATHS = ("pipeline", "pipeline.flagship", "pipeline.streaming", "process",
+                "batch_process", "bench", "benchmark", "run_experiments", "train.__main__",
+                "harness", "harness.experiments", "harness.device_sweep", "harness.triplet",
+                "data.extract_intervals", "data.draw", "train.data", "eval_vfi_quality",
+                "eval_sr_quality", "gate_checkpoint")
+
+
+def test_device_paths_import_no_scipy_pandas_matplotlib_or_yaml():
+    """The card's machine may lack these: only analysis/ and the statistics
+    CLIs (evaluation/statistics.py imports scipy) may pull them in."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {DEVICE_PATHS!r}:\n"
+        "    importlib.import_module('vfisr_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('scipy', 'pandas', 'matplotlib', 'yaml'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 @pytest.mark.parametrize("shape,multiple", [((1, 16, 20, 3), 32), ((5, 5, 3), 16),

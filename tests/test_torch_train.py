@@ -237,8 +237,8 @@ def test_cli_refusals(monkeypatch):
         tcli.main(["--model", "rife", "--steps", "1", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not ported"):
         tcli.main(["--model", "vfimamba", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not\\s+ported"):
-        tcli.main(["--model", "rife", "--data", "data/processed", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--model span trains on LR/HR pairs"):
+        tcli.main(["--model", "span", "--data", "data/processed", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         tcli.main(["--model", "rife", "--steps", "1"])

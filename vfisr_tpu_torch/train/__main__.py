@@ -1,8 +1,10 @@
-"""Train RIFE, SAFA or SPAN on synthetic gaming scenes made on the device
-(port of ``scripts/train.py`` for ``--model rife|rife_lite|safa|span|span_x4``).
+"""Train RIFE, SAFA or SPAN on synthetic gaming scenes or on preprocessed
+triplets (port of ``scripts/train.py`` for ``--model
+rife|rife_lite|safa|span|span_x4``).
 
     python -m vfisr_tpu_torch.train --model rife --steps 2000 --batch 16
-    python -m vfisr_tpu_torch.train --model safa --steps 2000 --batch 16
+    python -m vfisr_tpu_torch.train --model rife --data data/processed --steps 20000
+    python -m vfisr_tpu_torch.train --model safa --data-source host --steps 2000
     python -m vfisr_tpu_torch.train --model span_x4 --steps 1 --batch 1 \\
         --crop 32 --device cpu --out /tmp/span_x4.npz
 
@@ -14,24 +16,47 @@ endpoints area-resized to --crop and is supervised on the midpoint at 2x
 SR step (no remat). Starts from the model's shipped checkpoint (or
 --resume), writes weights/<model>.npz (weights/span_x2.npz for span, or
 --out) in the JAX package's layout, and refuses to overwrite an existing
-default checkpoint unless --out is given or --resume names it. Still to
-port (ROADMAP): VFIMamba, triplet data (--data) and the host-side
-generators.
+default checkpoint unless --out is given or --resume names it.
+
+Where the batches come from:
+- ``--data DIR``: random crops of the preprocessed triplets under DIR
+  (``train/data.py::TripletCropDataset``), read and cropped by one producer
+  thread, rife and rife_lite only. SAFA needs ground truth at twice the
+  input's size and SPAN's batches are LR/HR pairs, which triplets do not
+  give: both are refused (the reference trains SPAN on synthetic scenes
+  instead, without a word).
+- ``--data-source device`` and ``auto``: scenes rendered on the training
+  device (``train/device_data.py``). The card is the port's counterpart of
+  the reference's TPU, where ``auto`` picks the device generator.
+- ``--data-source host``: the reference's host generators
+  (``train/data.py``) on one producer thread: SPAN takes
+  ``synthetic_sr_batch``, SAFA ``synthetic_pool_iter`` at 2x --crop with
+  the endpoints area-resized to --crop, RIFE ``synthetic_pool_iter``.
+A producer keeps a queue of 4 batches; an exception in it is raised again
+in the step loop, so the run fails (the reference's producer prints it and
+ends the queue, and its run ends early with "Done").
+
+Still to port (ROADMAP): VFIMamba.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import queue
+import threading
 import time
 from pathlib import Path
+from typing import Iterator
 
+import numpy as np
 import torch
 
 from vfisr_tpu_torch.core.resize import resize
 from vfisr_tpu_torch.models.sota.rife import RIFELiteModel, RIFEModel
 from vfisr_tpu_torch.models.sota.safa import SAFAModel
 from vfisr_tpu_torch.models.sota.span import SPANModel
+from vfisr_tpu_torch.train.data import TripletCropDataset, synthetic_pool_iter, synthetic_sr_batch
 from vfisr_tpu_torch.train.device_data import device_sr_batch, device_synthetic_batch
 from vfisr_tpu_torch.train.train import create_train_state, make_sr_train_step, make_train_step
 from vfisr_tpu_torch.utils.checkpoint import params_to_jax, save_npz
@@ -40,6 +65,7 @@ _WEIGHTS = Path(__file__).resolve().parents[2] / "weights"
 MODELS = ("rife", "rife_lite", "safa", "span", "span_x4")
 NOT_PORTED = ("vfimamba", "vfimamba_s")
 SR_SCALE = {"span": 2, "span_x4": 4}
+QUEUE_DEPTH = 4  # batches a producer thread keeps ready, as the reference's
 
 
 def _radius(text: str) -> tuple:
@@ -51,10 +77,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                                      description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", default="rife_lite", choices=[*MODELS, *NOT_PORTED])
     parser.add_argument("--data", default=None,
-                        help="triplet data dir: not ported yet (needs cv2)")
+                        help="preprocessed triplet dir (rife, rife_lite; default: synthetic "
+                        "scenes)")
     parser.add_argument("--data-source", default="auto", choices=["auto", "device", "host"],
                         help="synthetic scenes: 'device' (and 'auto') render them on the "
-                        "training device; 'host' is not ported yet")
+                        "training device, 'host' on the CPU in a producer thread. Ignored "
+                        "with --data")
     parser.add_argument("--steps", type=int, default=2000)
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--crop", type=int, default=192)
@@ -116,8 +144,74 @@ def batch_maker(model: str, gen: torch.Generator, batch: int, crop: int, detail:
     return lambda: device_synthetic_batch(gen, batch, crop, detail)
 
 
-def main(argv=None) -> float:
-    """Run the CLI; returns the last logged mean loss."""
+def host_batches(model: str, rng: np.random.Generator, batch: int, crop: int,
+                 steps: int) -> Iterator[dict]:
+    """The model's training batches from the host generators
+    (scripts/train.py:186-214), as numpy arrays."""
+    if model in SR_SCALE:
+        for _ in range(steps):
+            yield synthetic_sr_batch(rng, batch, crop, SR_SCALE[model])
+    elif model == "safa":
+        # the scene at 2x crop: the endpoints degraded to crop, the midpoint
+        # supervised at the scene's resolution
+        for b in synthetic_pool_iter(rng, batch, 2 * crop, steps):
+            yield dict(b, **{k: resize(torch.from_numpy(b[k]), (crop, crop), "area").numpy()
+                             for k in ("img0", "img1")})
+    else:
+        yield from synthetic_pool_iter(rng, batch, crop, steps)
+
+
+def prefetch(batches: Iterator[dict]) -> Iterator[dict]:
+    """Yields ``batches`` as one producer thread makes them, up to
+    QUEUE_DEPTH ahead. An exception in the producer is raised again here, in
+    the consumer; a consumer that stops early stops the producer at its next
+    batch."""
+    q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def produce() -> None:
+        try:
+            for b in batches:
+                if not put(b):
+                    return
+            put(done)
+        except Exception as e:  # noqa: BLE001 - handed to the consumer, which raises it
+            put(e)
+
+    threading.Thread(target=produce, name="batch-producer", daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def _on(batch: dict, device: torch.device) -> dict:
+    """The batch's arrays as tensors on the device."""
+    return {k: (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))).to(device)
+            for k, v in batch.items()}
+
+
+def run(argv=None) -> dict:
+    """Run the CLI; returns {loss: the last logged mean loss, out: the
+    checkpoint's path, step_s: host seconds of each step (a step that logs
+    waits for the card to read its loss back), wait_s: each step's wait for
+    its batch}."""
     args = parse_args(argv)
     if args.model in NOT_PORTED:
         raise SystemExit(f"--model {args.model} is not ported to vfisr_tpu_torch yet "
@@ -125,9 +219,9 @@ def main(argv=None) -> float:
     if args.data is not None and args.model == "safa":
         raise SystemExit("safa joint training needs GT at 2x the input resolution; triplet "
                          "data has same-res midpoints: train on synthetic scenes (omit --data)")
-    if args.data is not None or args.data_source == "host":
-        raise SystemExit("triplet data (--data) and the host-side scene generators are not "
-                         "ported yet (ROADMAP.md); this trainer renders scenes on the device")
+    if args.data is not None and args.model in SR_SCALE:
+        raise SystemExit(f"--model {args.model} trains on LR/HR pairs, which triplet data does "
+                         "not give: train SPAN on synthetic scenes (omit --data)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda needs a CUDA card; pass --device cpu to train on the CPU")
@@ -151,15 +245,31 @@ def main(argv=None) -> float:
     state = create_train_state(module.parameters(), learning_rate=args.lr,
                                total_steps=args.steps)
     step_fn = (make_sr_train_step if args.model in SR_SCALE else make_train_step)(module, state)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    batch = batch_maker(args.model, gen, args.batch, args.crop, args.detail)
-    print(f"Training {args.model} on synthetic gaming scenes made on {device}", flush=True)
+    if args.data is not None:
+        ds = TripletCropDataset(args.data, crop=args.crop, seed=args.seed, device=str(device))
+        print(f"Training {args.model} on {len(ds)} triplet crops from {args.data}", flush=True)
+        batches = prefetch(ds.batches(args.batch, args.steps))
+    elif args.data_source == "host":
+        print(f"Training {args.model} on synthetic gaming scenes made on the host", flush=True)
+        batches = prefetch(host_batches(args.model, np.random.default_rng(args.seed),
+                                        args.batch, args.crop, args.steps))
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        make = batch_maker(args.model, gen, args.batch, args.crop, args.detail)
+        batches = (make() for _ in range(args.steps))
+        print(f"Training {args.model} on synthetic gaming scenes made on {device}", flush=True)
 
     t0 = time.time()
     window = []  # device scalars, read back at log time only
     last_loss = float("nan")
+    step_s, wait_s = [], []
     for step in range(1, args.steps + 1):
-        loss = step_fn(batch())
+        start = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            raise RuntimeError(f"the batch source ended after {step - 1} of {args.steps} steps")
+        wait_s.append(time.perf_counter() - start)
+        loss = step_fn(_on(batch, device))
         window.append(loss)
         if step % args.log_every == 0 or step == args.steps:
             last_loss = torch.stack(window).mean().item()
@@ -167,11 +277,17 @@ def main(argv=None) -> float:
             rate = step * args.batch / (time.time() - t0)
             print(f"step {step}/{args.steps}  loss {last_loss:.4f}  {rate:.1f} samples/s",
                   flush=True)
+        step_s.append(time.perf_counter() - start)
         if step % args.save_every == 0 or step == args.steps:
             save_npz(str(out_path), params_to_jax(module.state_dict()))
             print(f"  saved {out_path} @ step {step}", flush=True)
     print(f"Done: final loss {last_loss:.4f} -> {out_path}")
-    return last_loss
+    return {"loss": last_loss, "out": out_path, "step_s": step_s, "wait_s": wait_s}
+
+
+def main(argv=None) -> float:
+    """Run the CLI; returns the last logged mean loss."""
+    return run(argv)["loss"]
 
 
 if __name__ == "__main__":
