@@ -284,14 +284,33 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    the file at --weights afterwards byte-equal to whichever scored higher.
    No file under weights/ is written or moved. K1 and K2 per launch shape
    over the whole step.
+23. calibrates on the card ("calibration"), in this process: renders a
+   hard and a routing clip of 2 s at 1920x1080, 60 fps (``python -m
+   vfisr_tpu_torch.make_synthetic_clip``, seeds 431 and 432) into a temporary
+   directory, each 120 frames, the hard clip's HUD box equal in every frame,
+   no two consecutive routing frames equal, and prints ms per frame of the
+   textures, the composite and the Y4M write; runs ``calibrate_router`` on
+   them at quality 2560x1440 with full-width RIFE and VFIMamba (``--pairs 6
+   --stride 4 --native-pairs 6 --samples 8 --scene-worlds 2 --scene-seconds
+   2``, ``--out`` in the temporary directory), every K1 launch held against
+   its twin with equal origins as it goes, counted with ``window_origins``
+   raising; prints each calibrated value beside the shipped file's (experts'
+   dB, crossover px, ``warped_ssim_threshold``, bins: measurements, not
+   gates); loads the file it wrote with ``FlagshipVFI.load(gate_path=...)``
+   and ``get_model("adaptive", gate_path=...)`` and runs one 1080p pair of the
+   hard clip through each; runs ``calibrate_lpips`` at its defaults (48
+   patches, 600 steps) and requires the JAX package's pins on its pinned
+   sets: held-out 2AFC >= 0.85, mean within-family Spearman >= 0.9, each
+   family >= 0.6 (the shipped heads' numbers beside them). No file under
+   weights/ is written. K1 per launch shape over the whole step.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
 it (K1: the flagship pairs, the flagship stream, the RIFE train steps, the
 adaptive sequence, the adaptive stream, the SAFA pairs, the SAFA train
 steps, the evaluation, the bench, the sweep, the triplet benchmark, the
-counted extraction of the ingest and step 22's trainer, evaluation and gate
-runs; K2: the RIFE and the SAFA train steps and step 22's trainer runs)
+counted extraction of the ingest, step 22's trainer, evaluation and gate
+runs and step 23's calibration and gate loads; K2: the RIFE and the SAFA train steps and step 22's trainer runs)
 and the device time, bound, plain-twin and grid_sample time of exactly
 those launches (a stream's and the bench's launches at their shapes' times
 from steps 7 and 9). The last line is {"ok": true, "device": {...}}.
@@ -3493,6 +3512,206 @@ def data_phase(kw, card: str, processed: Path) -> tuple:
             path_numbers(sum(counts2.values()), err2, total2, 1))
 
 
+# the calibration phase: the clip renderer and the router and LPIPS
+# calibrations (make_synthetic_clip, calibrate_router, calibrate_lpips) on
+# the card, at full width, cut in counts only: two 2 s clips at 1920x1080,
+# 60 fps (the hard and routing presets at held-out seeds); the router's rows
+# at the default quality 2560x1440 with full-width RIFE and VFIMamba; LPIPS
+# at its defaults
+CALIB_SECONDS = 2.0
+CALIB_CLIPS = (("hard", 431), ("routing", 432))
+CALIB_ROUTER_ARGS = ["--pairs", "6", "--stride", "4", "--native-pairs", "6", "--samples", "8",
+                     "--scene-worlds", "2", "--scene-seconds", "2"]
+CALIB_HUD = (slice(42, 198), slice(42, 298))  # inside the minimap box, on whole chroma blocks
+# the JAX package's pins for a calibration (tests/test_lpips_calibration.py):
+# held-out 2AFC accuracy, the mean and the least within-family Spearman
+LPIPS_PINS = (0.85, 0.9, 0.6)
+
+
+def calibration_phase(kw, card: str) -> dict:
+    """Step 23 of the module docstring. Returns K1's numbers over the
+    phase's counted launches."""
+    import contextlib as cl
+    import io
+
+    from vfisr_tpu_torch import calibrate_lpips, calibrate_router, make_synthetic_clip
+    from vfisr_tpu_torch.core.resize import scale_size
+    from vfisr_tpu_torch.data.video_io import VideoReader
+    from vfisr_tpu_torch.evaluation import lpips_calibrate as lc
+    from vfisr_tpu_torch.models.registry import get_model
+    from vfisr_tpu_torch.pipeline.flagship import FlagshipVFI
+    from vfisr_tpu_torch.utils import router_gate
+
+    t0 = time.perf_counter()
+    weights_before = _weights_state()
+    checks, firsts, counts, tag = [], {}, {}, {}
+    real_warp = kw.warp_windowed
+
+    def counted(label: str, fn):
+        """fn() with every K1 launch held against its twin as it goes,
+        counted by shape with window_origins raising."""
+        tag["name"] = label
+        kw.warp_windowed = _checking(kw, checks)
+        kw.warp_windowed = _shape_counter(kw, firsts, counts, tag)
+        n = len(checks)
+        try:
+            with origin_table_raises(kw):
+                kw.launches = 0
+                out = fn()
+                torch.cuda.synchronize()
+                k1 = kw.launches
+        finally:
+            kw.warp_windowed = real_warp
+        require(k1 == len(checks) - n, f"{label}: {k1} K1 launches, each checked")
+        return out, k1
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_calib_")
+    root = Path(tmp.name)
+    try:
+        # 1. the two calibration clips, rendered on the card
+        clips, frames_hard = [], None
+        for preset, seed in CALIB_CLIPS:
+            path = root / f"calib_{preset}.y4m"
+            buf = io.StringIO()
+            with cl.redirect_stdout(buf):
+                res = make_synthetic_clip.main([str(path), "--preset", preset, "--seconds",
+                                                str(CALIB_SECONDS), "--seed", str(seed)])
+            with VideoReader(str(path)) as r:
+                frames = list(iter(lambda: r.read_to("cuda"), None))
+            n = int(CALIB_SECONDS * 60)
+            require(res["frames"] == len(frames) == n
+                    and all(tuple(f.shape) == (H, W, 3) for f in frames),
+                    f"{preset}: {len(frames)} frames of {tuple(frames[0].shape)}")
+            if preset == "hard":
+                hud = torch.stack([f[CALIB_HUD] for f in frames])
+                require(bool((hud == hud[:1]).all()), "hard: the HUD box the same in every frame")
+                frames_hard = frames[:2]
+            else:
+                require(all(not torch.equal(a, b) for a, b in zip(frames, frames[1:])),
+                        "routing: no two consecutive frames identical")
+            print(f"calibration render {preset} (python -m vfisr_tpu_torch.make_synthetic_clip "
+                  f"--preset {preset} --seconds {CALIB_SECONDS} --seed {seed}, 1920x1080, 60 fps, "
+                  f"on the card; host clock): {n} frames, textures {res['textures'] * 1e3:.3f} ms "
+                  f"({res['textures'] * 1e3 / n:.3f} ms per frame of the clip), composite "
+                  f"{res['composite'] * 1e3 / n:.3f} ms/frame, Y4M write "
+                  f"{res['write'] * 1e3 / n:.3f} ms/frame; "
+                  + ("the HUD box equal in every frame" if preset == "hard"
+                     else "no two consecutive frames equal") + f"; {card}")
+            clips.append(str(path))
+            del frames
+        t0 = _phase("calibration_render", t0)
+
+        # 2. the router's calibration on those clips, every K1 launch checked
+        gate_out = root / "router_gate.json"
+        buf = io.StringIO()
+        clip_list = ",".join(clips)
+        start = time.perf_counter()
+        with cl.redirect_stdout(buf):
+            record, k1 = counted("calibrate_router", lambda: calibrate_router.main(
+                ["--clip", clip_list, "--native-clips", clip_list, *CALIB_ROUTER_ARGS,
+                 "--out", str(gate_out)]))
+        router_s = time.perf_counter() - start
+        print(buf.getvalue().rstrip())
+        shipped = json.loads((ROOT / "weights" / "router_gate.json").read_text())
+        require(json.loads(gate_out.read_text()) == json.loads(json.dumps(record))
+                and set(shipped) <= set(record) and k1 > 0
+                and set(record["experts"]) == {"rife", "vfimamba"},
+                f"the gate file's sections: {sorted(record)}")
+        sg, ssg = record["scene_gate"], shipped["scene_gate"]
+
+        def bins(rec, regime):
+            return [{k: v for k, v in b.items() if k != "count"} | {"n": b["count"]}
+                    for b in rec["expert_bins"][regime]]
+
+        print(f"calibration router_gate ({' '.join(CALIB_ROUTER_ARGS)}, quality 2560x1440, "
+              f"{record['pairs_measured']} sweep rows, {len(record['native_rows'])} native rows; "
+              f"measurements, not gates; calibrated / shipped): experts {record['experts']} / "
+              f"{shipped['experts']}; blend_vs_rife_crossover_px "
+              f"{record['blend_vs_rife_crossover_px']} / {shipped['blend_vs_rife_crossover_px']} "
+              f"({record['blend_win_pairs']}/{record['pairs_measured']} blend wins); "
+              f"warped_ssim_threshold {sg['warped_ssim_threshold']} / "
+              f"{ssg['warped_ssim_threshold']} (cuts {sg['cut_pairs']}, non-cuts "
+              f"{sg['noncut_pairs']}, false holds {sg['false_holds']}, missed "
+              f"{sg['missed_cuts']}); native bins {bins(record, 'native')} / "
+              f"{bins(shipped, 'native')}; sweep bins {bins(record, 'sweep')} / "
+              f"{bins(shipped, 'sweep')}; {router_s:.3f} s, K1 {k1} launches; {card}")
+        t0 = _phase("calibration_router", t0)
+
+        # 3. the gate it wrote, loaded by the flagship and the adaptive model,
+        # one 1080p pair of the hard clip through each
+        router_gate.clear_cache()
+        rife_npz = ROOT / "weights" / "rife.npz"
+        vfi = FlagshipVFI(device="cuda")
+        vfi.load(weights_path=str(rife_npz), gate_path=str(gate_out))
+        require(vfi.base_config.scene_warp_ssim_threshold == sg["warped_ssim_threshold"],
+                "the flagship's scene gate is the calibrated one")
+        up, k1_flagship = counted("flagship on the calibrated gate", lambda: vfi.fused_stream_step(
+            frames_hard[0], frames_hard[1], SCALE, TS))
+        require(up.dtype == torch.uint8
+                and tuple(up.shape) == (1 + len(TS), *scale_size(H, W, SCALE), 3),
+                f"flagship pair on the calibrated gate: {tuple(up.shape)}")
+        model = get_model("adaptive", device="cuda", load=True, rife_weights=str(rife_npz),
+                          vfimamba_weights=str(ROOT / "weights" / "vfimamba.npz"),
+                          gate_path=str(gate_out))
+        require(model.router.scene_warp_ssim_threshold == sg["warped_ssim_threshold"]
+                and model.router.gate_path == str(gate_out),
+                "the adaptive model's scene gate and bins are the calibrated file's")
+        x0, x1 = (f.float()[None] / 255.0 for f in frames_hard)
+        mid, k1_adaptive = counted("adaptive on the calibrated gate",
+                                   lambda: model.interpolate_batch(x0, x1, TS))
+        require(tuple(mid.shape[-3:]) == (H, W, 3) and bool(torch.isfinite(mid.float()).all()),
+                f"adaptive pair on the calibrated gate: {tuple(mid.shape)}")
+        print(f"calibration gate loads: FlagshipVFI.load(gate_path=...) scene gate "
+              f"{vfi.base_config.scene_warp_ssim_threshold}, a 1080p pair to "
+              f"{tuple(up.shape)} (K1 {k1_flagship}); get_model('adaptive', gate_path=...) "
+              f"scene gate {model.router.scene_warp_ssim_threshold}, VFIMamba "
+              f"{'enabled' if model.enable_vfimamba else 'disabled'}, a 1080p pair to "
+              f"{tuple(mid.shape)} (K1 {k1_adaptive}); {card}")
+        del vfi, model, up, mid, x0, x1, frames_hard
+        torch.cuda.empty_cache()
+        t0 = _phase("calibration_gate_loads", t0)
+
+        # 4. LPIPS heads at calibrate_lpips's defaults, held to the JAX
+        # package's pins on its own pinned sets
+        heads_out = root / "lpips_heads.npz"
+        buf = io.StringIO()
+        start = time.perf_counter()
+        with cl.redirect_stdout(buf):
+            report = calibrate_lpips.main(["--out", str(heads_out)])
+        lpips_s = time.perf_counter() - start
+        heads = {k: v for k, v in np.load(heads_out).items()}
+        shipped_heads = {k: v for k, v in np.load(ROOT / "weights" / "lpips_heads.npz").items()}
+        pairs = lc.build_pairs(np.random.default_rng(99), n_patches=4, cross_per_patch=6,
+                               device="cuda")
+        pins = {}
+        for name, h in (("calibrated", heads), ("shipped", shipped_heads)):
+            rho = lc.severity_spearman(h, np.random.default_rng(7), n_patches=2, device="cuda")
+            pins[name] = (lc.evaluate_heads(h, *pairs, device="cuda")["accuracy_2afc"],
+                          float(np.mean(list(rho.values()))), min(rho.values()), rho)
+        acc, mean_rho, min_rho, rho = pins["calibrated"]
+        require(acc >= LPIPS_PINS[0] and mean_rho >= LPIPS_PINS[1] and min_rho >= LPIPS_PINS[2],
+                f"LPIPS pins: 2AFC {acc:.4f} >= {LPIPS_PINS[0]}, mean Spearman {mean_rho:.4f} >= "
+                f"{LPIPS_PINS[1]}, each family >= {LPIPS_PINS[2]}: {rho}")
+        require((root / "LPIPS_CALIBRATION.md").is_file(), "LPIPS_CALIBRATION.md beside --out")
+        sacc, smean, smin, _ = pins["shipped"]
+        print(f"calibration calibrate_lpips (defaults: 48 patches, 600 steps; {lpips_s:.3f} s): "
+              f"{report['train']['n_pairs']} train / {report['holdout']['n_pairs']} held-out pairs, "
+              f"final loss {report['final_loss']:.5f}, held-out 2AFC "
+              f"{report['holdout']['accuracy_2afc']:.4f} (uniform heads "
+              f"{report['holdout_uniform']['accuracy_2afc']:.4f}); the pins (build_pairs "
+              f"default_rng(99) 4 patches, severity_spearman default_rng(7) 2 patches): 2AFC "
+              f"{acc:.4f}, mean Spearman {mean_rho:.4f}, least {min_rho:.4f} {rho}; the shipped "
+              f"heads on the same sets: {sacc:.4f}, {smean:.4f}, {smin:.4f}; {card}")
+        t0 = _phase("calibration_lpips", t0)
+    finally:
+        tmp.cleanup()
+    require(_weights_state() == weights_before, "no file under weights/ written or moved")
+    err = _require_checks(checks, "calibration phase")
+    total = _kernel_by_shape(kw, "calibration", "phase", firsts, counts)
+    _phase("calibration_kernel_timing", t0)
+    return path_numbers(sum(counts.values()), err, total, 1)
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3683,13 +3902,15 @@ def main() -> int:
         k1_data, k2_data = data_phase(kw, card, Path(ingest_tmp.name) / "processed")
     finally:
         ingest_tmp.cleanup()
+    k1_calibration = calibration_phase(kw, card)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
     print(json.dumps({"kernels": [
         kernel_entry("warp_windowed", [k1_flagship, k1_stream_flagship, k1_train, k1_adaptive,
                                        k1_stream_adaptive, k1_safa, k1_safa_train, k1_evaluation,
-                                       k1_bench, k1_sweep, k1_triplet, k1_ingest, k1_data]),
+                                       k1_bench, k1_sweep, k1_triplet, k1_ingest, k1_data,
+                                       k1_calibration]),
         kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train, k2_data])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,7 +12,8 @@ for tiles with an odd slack it samples one row below the compiled kernel
 (vfisr_tpu/ops/pallas/warp.py:103-107 against :170-172). The fix clears the
 slack's low bit as the kernel body reads it, which makes the interpret
 path roll by the even part, as the compiled kernel does. f32 windows have
-no fold and are untouched.
+no fold and are untouched. f32 warps of many channels go to the interpret
+path in slices of channels (``REF_SLICE``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,28 @@ class _EvenRowSlack:
 
     def __getitem__(self, idx):
         return self.ref[idx] & ~(1 << 7)
+
+
+# An f32 warp of more channels goes to the interpret-mode kernel in slices
+# of REF_SLICE channels: its windows and weights depend on the flow alone,
+# so each channel's output is the same in any slice (bit for bit at 40 and
+# 176 channels, tests/test_torch_warp.py), and a narrow kernel compiles in
+# seconds where a 32-channel chunk of the reference's takes half a minute.
+REF_SLICE = 8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for a test module's torch CPU ops, where the
+    module imports this fixture: under the suite's parallel workers the
+    cores are busy, and OpenMP barriers would wait on descheduled threads
+    (one data-pipeline file took 977 worker-seconds on the default count)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @contextlib.contextmanager
@@ -63,6 +86,12 @@ def windowed_reference(backend: bool = True):
             args = args[:6] + (True,) + args[7:]
         else:
             kw["interpret"] = True
+        img = args[0]
+        dtype = args[7] if len(args) > 7 else kw.get("compute_dtype", jax.numpy.float32)
+        if img.shape[-1] > REF_SLICE and dtype == jax.numpy.float32:
+            return jax.numpy.concatenate(
+                [orig_warp(img[..., k:k + REF_SLICE], *args[1:], **kw)
+                 for k in range(0, img.shape[-1], REF_SLICE)], axis=-1)
         return orig_warp(*args, **kw)
 
     # jit caches hold traces made with and without the patch: clear them

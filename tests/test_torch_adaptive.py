@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import noisy_params, rel_err, windowed_reference
+from _torch_port import noisy_params, one_torch_thread, rel_err, windowed_reference
 from vfisr_tpu.models.novel import adaptive_pipeline as jap
 from vfisr_tpu.models.sota import rife as jrife, vfimamba as jvm
 from vfisr_tpu.utils import router_gate as jgate

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import smooth_frames
+from _torch_port import one_torch_thread, smooth_frames
 from vfisr_tpu_torch.core import color as tcolor, frames as tframes, resize as tresize
 from vfisr_tpu_torch.ops import conv as tconv, morphology as tmorph, ssim as tssim
 from vfisr_tpu_torch.ops.flow import farneback as tfarn

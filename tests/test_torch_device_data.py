@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import rel_err, windowed_reference
+from _torch_port import one_torch_thread, rel_err, windowed_reference
 from vfisr_tpu.train.device_data import device_synthetic_batch as jax_batch
 from vfisr_tpu_torch.train import device_data as tdd
 

@@ -29,7 +29,7 @@ import vfisr_tpu.utils.router_gate as jrg
 import vfisr_tpu_torch.harness.device_sweep as tds
 import vfisr_tpu_torch.harness.experiments as tex
 import vfisr_tpu_torch.utils.router_gate as trg
-from _torch_port import narrow_rife, sweep_interval
+from _torch_port import narrow_rife, one_torch_thread, sweep_interval
 
 OUT = (192, 108)
 PANS = (0, 3, 8, 16, 24)  # px per pair: a static pair, then faster pans

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import game_frames, rel_err, smooth_frames
+from _torch_port import game_frames, one_torch_thread, rel_err, smooth_frames
 from vfisr_tpu_torch.core import color as tcolor, resize as tresize
 from vfisr_tpu_torch.ops import conv as tconv, edges as tedges, ssim as tssim
 from vfisr_tpu_torch.ops.flow import flow_magnitude

@@ -21,7 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_port import game_frames, windowed_reference
+from _torch_port import game_frames, one_torch_thread, windowed_reference
 from vfisr_tpu.models.sota import rife as jrife
 from vfisr_tpu.pipeline import flagship as jflag
 from vfisr_tpu.utils.checkpoint import load_params
@@ -103,14 +103,16 @@ def test_history_ring_shifts():
 
 
 def test_port_imports_no_jax_cv2_or_reference():
-    """Importing every module of the port (the trainer, its CLI included),
-    and chip_smoke.py, pulls in no jax, no cv2 and nothing of vfisr_tpu."""
+    """Importing every module of the port (the trainer, its CLI, the clip
+    renderer and the calibrations included), and chip_smoke.py, pulls in no
+    jax, no cv2 and nothing of vfisr_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vfisr_tpu_torch\n"
         "for m in pkgutil.walk_packages(vfisr_tpu_torch.__path__, 'vfisr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('train', 'train.train', 'train.device_data', 'train.__main__'):\n"
+        "for m in ('train', 'train.train', 'train.device_data', 'train.__main__',\n"
+        "          'make_synthetic_clip', 'calibrate_router', 'calibrate_lpips'):\n"
         "    importlib.import_module('vfisr_tpu_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'vfisr_tpu', 'flax'))\n"

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_port import game_frames, windowed_reference
+from _torch_port import game_frames, one_torch_thread, windowed_reference
 from vfisr_tpu.models.sota import rife as jrife
 from vfisr_tpu.pipeline import flagship as jflag
 from vfisr_tpu.utils.checkpoint import load_params

@@ -24,7 +24,7 @@ import pytest
 import vfisr_tpu.harness.experiments as jex
 import vfisr_tpu_torch.harness.device_sweep as tds
 import vfisr_tpu_torch.harness.experiments as tex
-from _torch_port import narrow_rife, sweep_interval
+from _torch_port import narrow_rife, one_torch_thread, sweep_interval
 from vfisr_tpu_torch.data.png import write_png
 from vfisr_tpu_torch.data.video_io import VideoWriter
 

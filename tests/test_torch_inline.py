@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import game_frames
+from _torch_port import game_frames, one_torch_thread
 from vfisr_tpu import methods as jm
 from vfisr_tpu.ops.flow import farneback_flow as jflow
 from vfisr_tpu_torch import methods as tm

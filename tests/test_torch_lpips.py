@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import game_frames
+from _torch_port import game_frames, one_torch_thread
 from vfisr_tpu_torch.evaluation import lpips as tl
 
 jl = import_module("vfisr_tpu.evaluation.lpips")

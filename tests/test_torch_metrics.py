@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import smooth_frames
+from _torch_port import one_torch_thread, smooth_frames
 import vfisr_tpu_torch.evaluation as tev
 from vfisr_tpu_torch.evaluation import metrics as tm
 

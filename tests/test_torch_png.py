@@ -18,6 +18,7 @@ import pytest
 from vfisr_tpu.data import extract_intervals as jext
 from vfisr_tpu_torch.data import extract_intervals as text
 from vfisr_tpu_torch.data.png import SIGNATURE, _chunk, read_png, write_png
+from _torch_port import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _image(seed: int, h: int = 61, w: int = 97) -> np.ndarray:

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import game_frames, noisy_params
+from _torch_port import game_frames, noisy_params, one_torch_thread
 from vfisr_tpu.core.resize import resize as jresize
 from vfisr_tpu.models import base as jbase, registry as jreg
 from vfisr_tpu.models.sota import rife as jrife

@@ -27,6 +27,7 @@ import torch
 from vfisr_tpu.core.frames import pad_to_multiple as jpad
 from vfisr_tpu_torch.core.frames import pad_to_multiple as tpad
 from vfisr_tpu_torch.models.registry import get_model
+from _torch_port import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -97,13 +98,27 @@ def _gate_cli(tmp):
           "--demote-to", str(tmp / "aside.npz"), "--device", "cpu"])
 
 
+def _calibrate_router_cli(tmp):
+    from vfisr_tpu_torch.calibrate_router import main
+
+    main(["--out", "weights/router_gate.json", "--device", "cpu"])
+
+
+def _calibrate_lpips_cli(tmp):
+    from vfisr_tpu_torch.calibrate_lpips import main
+
+    main(["--out", "weights/lpips_heads.npz", "--device", "cpu"])
+
+
 @pytest.mark.parametrize("entry", [_sweep, _benchmarks, _experiments_cli, _benchmark_cli,
-                                   _extract_cli, _eval_vfi_cli, _eval_sr_cli, _gate_cli])
+                                   _extract_cli, _eval_vfi_cli, _eval_sr_cli, _gate_cli,
+                                   _calibrate_router_cli, _calibrate_lpips_cli])
 def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
     """The sweep, the triplet benchmark, the interval extraction (Farneback's
     f32 convolutions), their CLIs and the held-out evaluation and gate CLIs
     turn TF32 off before any work (here the harnesses stop early: no
-    interval, no clip; the gate has no checkpoint to score)."""
+    interval, no clip; the gate has no checkpoint to score; the calibrations
+    refuse to write over the shipped gate and heads)."""
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
         entry(tmp_path)
@@ -114,12 +129,13 @@ def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
 
 # the port's device paths: the streaming pipeline and its CLIs, the benches,
 # the harnesses and their CLIs, the trainer, the interval extraction and the
-# held-out evaluation and gate CLIs
+# held-out evaluation and gate CLIs, the clip renderer and the calibrations
 DEVICE_PATHS = ("pipeline", "pipeline.flagship", "pipeline.streaming", "process",
                 "batch_process", "bench", "benchmark", "run_experiments", "train.__main__",
                 "harness", "harness.experiments", "harness.device_sweep", "harness.triplet",
                 "data.extract_intervals", "data.draw", "train.data", "eval_vfi_quality",
-                "eval_sr_quality", "gate_checkpoint")
+                "eval_sr_quality", "gate_checkpoint", "data.synthetic_clip", "make_synthetic_clip",
+                "calibrate_router", "evaluation.lpips_calibrate", "calibrate_lpips")
 
 
 def test_device_paths_import_no_scipy_pandas_matplotlib_or_yaml():

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import smooth_frames
+from _torch_port import one_torch_thread, smooth_frames
 from vfisr_tpu.models.sota import rife as jrife
 from vfisr_tpu.utils.checkpoint import load_params
 from vfisr_tpu_torch.models.sota import rife as trife

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import narrow_rife, smooth_frames
+from _torch_port import narrow_rife, one_torch_thread, smooth_frames
 from vfisr_tpu_torch.models.sota import rife as trife
 from vfisr_tpu_torch.utils.checkpoint import load_npz
 from vfisr_tpu_torch.utils.paths import default_weights

@@ -5,9 +5,9 @@ numpy noise, so the zero-init flow and pixel-shuffle heads carry signal)
 and the full-width net from weights/safa.npz, on numpy-seeded frames.
 Warps: the exact gather on both sides (each package's CPU default), and,
 for the narrow net, the windowed warp the GPU runs: the Pallas kernel in
-interpret mode (``_torch_port.windowed_reference``; at 40 channels the
-reference splits its window into chunks of 32 and 8) against the port's
-plain twin, which takes all 40 at once.
+interpret mode (``_torch_port.windowed_reference``, which hands it the 40
+channels in slices of 8: each channel's output is the same in any slice)
+against the port's plain twin, which takes all 40 at once.
 
 Tolerance: 1e-4 on the [0, 1] frame everywhere (f32 on both sides; the
 convolutions' sums run in another order through up to 15 convs, the
@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import game_frames, noisy_params, smooth_frames, windowed_reference
+from _torch_port import (game_frames, noisy_params, one_torch_thread, smooth_frames,
+                         windowed_reference)
 from vfisr_tpu.models.sota import safa as jsafa
 from vfisr_tpu_torch.models.sota import safa as tsafa
 from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax

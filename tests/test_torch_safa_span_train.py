@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import noisy_params, rel_err, smooth_frames
+from _torch_port import noisy_params, one_torch_thread, rel_err, smooth_frames
 from vfisr_tpu.core.warp import backward_warp as jax_backward_warp
 from vfisr_tpu.models.sota import safa as jsafa
 from vfisr_tpu.models.sota import span as jspan

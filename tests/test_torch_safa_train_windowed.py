@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import noisy_params, smooth_frames, windowed_reference
+from _torch_port import noisy_params, one_torch_thread, smooth_frames, windowed_reference
 from vfisr_tpu.models.sota import safa as jsafa
 from vfisr_tpu.train import train as jtrain
 from vfisr_tpu.utils.checkpoint import _flatten, _unflatten

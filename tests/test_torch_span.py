@@ -22,7 +22,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_port import game_frames, noisy_params, smooth_frames
+from _torch_port import game_frames, noisy_params, one_torch_thread, smooth_frames
 from vfisr_tpu.models.novel import adaptive_pipeline as jap
 from vfisr_tpu.models.sota import rife as jrife, span as jspan, vfimamba as jvm
 from vfisr_tpu_torch.models.novel import adaptive_pipeline as tap

@@ -21,6 +21,7 @@ import torch
 
 from vfisr_tpu_torch import bench
 from vfisr_tpu_torch.evaluation import speed as tspeed
+from _torch_port import one_torch_thread  # noqa: F401 (autouse fixture)
 
 jspeed = import_module("vfisr_tpu.evaluation.speed")
 ROOT = Path(__file__).resolve().parents[1]

@@ -24,6 +24,7 @@ from vfisr_tpu_torch.analysis import final_analysis as tfinal
 from vfisr_tpu_torch.analysis import normalize_data as tnorm
 from vfisr_tpu_torch.analysis import statistical_analysis as tsa
 from vfisr_tpu_torch.evaluation import statistics as tst
+from _torch_port import one_torch_thread  # noqa: F401 (autouse fixture)
 
 METHODS = ("degraded", "lanczos_blend", "optical_flow_basic", "uafi_default", "ughi_default",
            "rife_default", "adaptive_default", "mcar_default")

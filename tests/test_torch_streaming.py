@@ -39,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import game_frames, noisy_params, smooth_frames
+from _torch_port import game_frames, noisy_params, one_torch_thread, smooth_frames
 from vfisr_tpu.data.video_io import VideoMeta as JaxMeta
 from vfisr_tpu.models.novel import adaptive_pipeline as jap
 from vfisr_tpu.models.sota import rife as jrife, vfimamba as jvm

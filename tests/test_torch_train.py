@@ -32,7 +32,7 @@ import optax
 import pytest
 import torch
 
-from _torch_port import rel_err, smooth_frames, windowed_reference
+from _torch_port import one_torch_thread, rel_err, smooth_frames, windowed_reference
 from vfisr_tpu.models.sota import rife as jrife
 from vfisr_tpu.train import train as jtrain
 from vfisr_tpu.utils.checkpoint import _flatten, _unflatten, load_params

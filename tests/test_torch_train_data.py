@@ -7,8 +7,8 @@ the port's torch ops run on one intra-op thread.
 
 Tolerances:
 - ``warp_affine``: uint8 equal to cv2.warpAffine on every pixel; float32
-  within 1e-6. ``fill_circle``, ``fill_rectangle``, the HUD label and its
-  box: equal. ``rotation_matrix_2d``: within 1e-12.
+  within 1e-6. Filled circles and rectangles (``circle``/``rectangle`` at
+  thickness -1), the HUD label and its box: equal. ``rotation_matrix_2d``: within 1e-12.
 - ``synthetic_batch``: ``t`` equal; img0/img1/gt within 2 LSB (x255) with
   >= 99% of values equal (cv2's fixed-point INTER_CUBIC textures against
   ``core/resize.py``'s f32 taps: at most 1 LSB on >= 99.95% of a texture);
@@ -91,7 +91,7 @@ def test_fill_circle_matches_cv2():
     for c in (64, 96, 192, 256, 384):
         for r in range(c // 8, c // 3):
             ref = cv2.circle(np.zeros((c, c), np.uint8), (c // 2, c // 2), r, 1, -1)
-            got = draw.fill_circle(np.zeros((c, c), np.uint8), (c // 2, c // 2), r, 1)
+            got = draw.circle(np.zeros((c, c), np.uint8), (c // 2, c // 2), r, 1, -1)
             assert np.array_equal(got, ref), (c, r)
 
 
@@ -101,7 +101,7 @@ def test_fill_rectangle_and_hud_label_match_cv2():
         img = rng.integers(0, 256, (96, 128, 3), np.uint8)
         pts = [tuple(int(v) for v in rng.integers(-10, 140, 2)) for _ in range(2)]
         ref = cv2.rectangle(img.copy(), pts[0], pts[1], (255, 255, 255), -1)
-        assert np.array_equal(draw.fill_rectangle(img.copy(), pts[0], pts[1], (255, 255, 255)), ref)
+        assert np.array_equal(draw.rectangle(img.copy(), pts[0], pts[1], (255, 255, 255), -1), ref)
     for x0, y0 in ((0, 0), (3, 11), (60, 40), (67, 71)):
         img = rng.integers(0, 256, (96, 128, 3), np.uint8)
         ref = img.copy()

@@ -24,7 +24,7 @@ import pytest
 
 import vfisr_tpu.harness.triplet as jtr
 import vfisr_tpu_torch.harness.triplet as ttr
-from _torch_port import narrow_rife, smooth_frames
+from _torch_port import narrow_rife, one_torch_thread, smooth_frames
 from vfisr_tpu.models.traditional.baselines import LanczosBaseline as JLanczos
 from vfisr_tpu_torch.data.png import read_png
 from vfisr_tpu_torch.models.traditional.baselines import LanczosBaseline as TLanczos

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import noisy_params, rel_err, smooth_frames, windowed_reference
+from _torch_port import noisy_params, one_torch_thread, rel_err, smooth_frames, windowed_reference
 from vfisr_tpu.core.resize import resize as jresize
 from vfisr_tpu.models.sota import vfimamba as jvm
 from vfisr_tpu.utils.checkpoint import _flatten, load_params as jload_params

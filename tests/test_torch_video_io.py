@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import smooth_frames
+from _torch_port import one_torch_thread, smooth_frames
 from vfisr_tpu_torch.core.color import i420_to_rgb
 from vfisr_tpu_torch.data.video_io import (C420, VideoReader, VideoWriter, Y4MHeader, is_y4m,
                                            probe_video)

@@ -26,7 +26,7 @@ import pytest
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from _torch_port import rel_err, smooth_flow, windowed_reference
+from _torch_port import one_torch_thread, rel_err, smooth_flow, windowed_reference
 from vfisr_tpu.core import warp as jcore
 from vfisr_tpu_torch.core import warp as tcore
 from vfisr_tpu_torch.ops.cuda import warp as tw

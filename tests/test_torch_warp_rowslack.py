@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import smooth_flow, windowed_reference
+from _torch_port import one_torch_thread, smooth_flow, windowed_reference
 from vfisr_tpu.ops.pallas import warp as pw
 from vfisr_tpu_torch.ops.cuda import warp as tw
 

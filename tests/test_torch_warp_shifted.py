@@ -13,9 +13,8 @@ vfisr_tpu's: the dense shifted adjoint and ``img_grad``.
   function with the same ``img_grad``, the Pallas kernel in interpret mode
   (``_torch_port.windowed_reference``), with flows clipped to +-8 (some on
   the bound), as SAFA's are, at 12 channels (an interpret-mode kernel's
-  compile time grows with its channels: at 40, the reference's chunks of 32
-  and 8 take ~45 s per weight mode; the chunks' channels are independent,
-  and tests/test_torch_safa.py holds the port at 40 against them). 1e-5
+  compile time grows with its channels; the channels are independent, and
+  tests/test_torch_safa.py holds the port at 40 against the reference). 1e-5
   relative to max(1, the reference's largest magnitude).
 """
 
@@ -25,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import rel_err, smooth_flow, windowed_reference
+from _torch_port import one_torch_thread, rel_err, smooth_flow, windowed_reference
 from vfisr_tpu.core import warp as jcore
 from vfisr_tpu_torch.core import warp as tcore
 

@@ -8,9 +8,10 @@ a non-negative linear head per tap, spatial means summed over the taps.
 Weights, in the JAX package's layout (HWIO convs, ``lin{i}_w`` heads), so a
 file it wrote loads here: the official weights from ``weights_path`` (which
 must exist when given) or ``weights/lpips_alex.npz`` where that file exists
-(mode ``official_weights``), else the AlexNet drawn from a numpy seed (He init,
-``_init_params``) with uniform heads (``random_features``), or with the
-calibrated heads of ``weights/lpips_heads.npz`` (``calibrated_heads``).
+(mode ``official_weights``; ``load_official=False`` skips that file), else
+the AlexNet drawn from a numpy seed (He init, ``_init_params``) with uniform
+heads (``random_features``), or with the calibrated heads of
+``weights/lpips_heads.npz`` (``calibrated_heads``).
 
 On the GPU the five convs run in f32 with TF32 off (``LPIPS.__init__``
 turns cuDNN's and matmul's TF32 off) through ``models/base.py::planned_conv``,
@@ -124,23 +125,24 @@ class LPIPS:
     [0,1] (numpy or tensors); the network lives on ``device``."""
 
     def __init__(self, weights_path: Optional[str] = None, seed: int = 0,
-                 load_calibrated: bool = True, device: str = "cuda"):
+                 load_calibrated: bool = True, device: str = "cuda", load_official: bool = True):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.device = device
         if weights_path is not None and not os.path.exists(weights_path):
             raise FileNotFoundError(f"LPIPS weights {weights_path} not found")
         path = weights_path or DEFAULT_WEIGHTS_PATH
-        if os.path.exists(path):
+        if os.path.exists(path) and (load_official or weights_path is not None):
             data = np.load(path)
             self.params = {k: data[k] for k in data.files}
             self.mode = "official_weights"
         else:
             self.params = _init_params(seed)
             self.mode = "random_features"
-            # the calibration (evaluation/lpips_calibrate.py in the JAX
-            # package) passes load_calibrated=False, so that its baselines
-            # do not pick up the heads it ships
+            # the calibration (evaluation/lpips_calibrate.py) passes
+            # load_official=False and load_calibrated=False: it fits heads
+            # to the random features, and its baselines must not pick up
+            # the heads it ships
             if load_calibrated and os.path.exists(HEADS_PATH):
                 heads = np.load(HEADS_PATH)
                 for k in heads.files:

@@ -100,7 +100,7 @@ def synthetic_batch(rng: np.random.Generator, batch_size: int, crop: int = 192,
         canvas = _texture(rng, 2 * c, int(rng.integers(4, 32)))
         fg = _texture(rng, c, int(rng.integers(4, 16)))
         fg_mask = np.zeros((c, c), np.uint8)
-        draw.fill_circle(fg_mask, (c // 2, c // 2), int(rng.integers(c // 8, c // 3)), 1)
+        draw.circle(fg_mask, (c // 2, c // 2), int(rng.integers(c // 8, c // 3)), 1, -1)
         t = float(rng.uniform(0.1, 0.9))
         bgd = rng.uniform(-12, 12, 2)  # background displacement (subpixel)
         fgd = rng.uniform(-20, 20, 2)  # foreground displacement (subpixel)
