@@ -303,6 +303,39 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    sets: held-out 2AFC >= 0.85, mean within-family Spearman >= 0.9, each
    family >= 0.6 (the shipped heads' numbers beside them). No file under
    weights/ is written. K1 per launch shape over the whole step.
+24. trains VFIMamba and VFIMamba-S on the card at the trainer's defaults
+   (batch 16, crop 192, scenes made on the card, lr 2e-4; each
+   BiMambaBlock recomputed in the backward pass, ``MambaConfig.remat``, and
+   no whole-forward remat, as scripts/train.py trains them): VFIMamba from
+   weights/vfimamba.npz, VFIMamba-S from its seeded init (its file is not
+   in the chip copy). Per model: the f32 conv shapes of a step forward and
+   backward with cuDNN's plan and without (``time_convs``), before any timed
+   step; one recorded step with both kernels' counts set to 0 before and
+   read after and ``window_origins`` raising: 8 K1 launches (2 for the
+   data, two per refinement level and two at full resolution) and 6 K2
+   (each warp's flow gradient), all whole-C; origins, K1 and K2 against
+   their twins at every launch and K2 at synthetic cases of each shape; the
+   whole step with the kernels against the same step with both plain twins
+   (deterministic cuDNN); the selective scan's Function (output and every
+   gradient) against autograd through an unrolled loop without ``out=`` on
+   rows 0-7 of block 0's first scan, its inputs taken from the step
+   (tolerance 1e-4 of each tensor's largest); MAMBA_TRAIN_STEPS timed steps
+   after one, counted (ms/step, samples/s, peak memory); then ``python -m
+   vfisr_tpu_torch.train --model <name> --steps 4 --out <tmp>`` in process,
+   every K1 and K2 launch held against its twin as it goes and counted with
+   ``window_origins`` raising, finite losses, and its npz (the JAX
+   package's layout) read back whole by ``VFIMambaModel.load``. Then the
+   export: ``python -m vfisr_tpu_torch.compile_aot --model rife --precision
+   bf16`` at 1920x1080, one pair, t = 0.25/0.5/0.75, to a temporary
+   ``.pt2``; the artifact loaded with ``torch.export.load`` and run on step
+   4's first pair with each K1 launch (through the custom op
+   ``vfisr_tpu_torch::warp_windowed``) recorded and counted (4) with
+   ``window_origins`` raising, origins and K1 against the twin at each; its
+   frames against eager ``interpolate_batch`` of the same bf16 model (max
+   abs diff at most 1e-5, printed); the exported program and the eager call
+   timed; ``compile_stats`` and ``compile_aot --load`` printed; the host
+   time of a K1 call through the op against ``launch`` alone. No file
+   under weights/ is written. K1 and K2 per launch shape.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
@@ -310,7 +343,9 @@ it (K1: the flagship pairs, the flagship stream, the RIFE train steps, the
 adaptive sequence, the adaptive stream, the SAFA pairs, the SAFA train
 steps, the evaluation, the bench, the sweep, the triplet benchmark, the
 counted extraction of the ingest, step 22's trainer, evaluation and gate
-runs and step 23's calibration and gate loads; K2: the RIFE and the SAFA train steps and step 22's trainer runs)
+runs, step 23's calibration and gate loads, step 24's VFIMamba train steps
+and trainer runs and the exported program's runs; K2: the RIFE and the SAFA
+train steps, step 22's trainer runs and step 24's VFIMamba steps)
 and the device time, bound, plain-twin and grid_sample time of exactly
 those launches (a stream's and the bench's launches at their shapes' times
 from steps 7 and 9). The last line is {"ok": true, "device": {...}}.
@@ -1235,8 +1270,8 @@ def adaptive_phase(kw) -> tuple:
     print(f"adaptive stage vfimamba (VFIMambaModel.interpolate_batch, f32): {fwd_ms:.3f} ms, "
           f"selective_scan {scan_ms:.3f} ms in {len(scans) // 2} calls ({100 * scan_ms / fwd_ms:.1f}%),"
           f" {over_resident(resident)}")
-    # why VFIMamba's decoder conv runs without cuDNN
-    # (models/base.py::without_cudnn): the conv at its shape each way
+    # why VFIMamba's decoder conv runs without cuDNN at this shape
+    # (models/base.py::planned_conv; not in CUDNN_WINS): the conv each way
     conv = model._vfimamba.module.Conv_3
     feat = torch.randn((len(TS), conv.in_channels, -(-H // 32) * 4, -(-W // 32) * 4), device=dev)
     with torch.no_grad():
@@ -3299,13 +3334,39 @@ def _checking_grad(kw, checks: list, firsts: dict, counts: dict, tag: dict):
     return checking
 
 
-def _require_grad_checks(checks: list, label: str) -> float:
+def _counted_run(kw, checks1: list, checks2: list, firsts1: dict, counts1: dict,
+                 firsts2: dict, counts2: dict, tag: dict, label: str, fn):
+    """fn() with K1 and K2 held against their twins (and K1's origins against
+    window_origins) as they go, counted by shape under label and in all,
+    with window_origins raising: (fn's result, K1 launches, K2 launches)."""
+    tag["name"] = label
+    real_warp, real_grad = kw.warp_windowed, kw.warp_windowed_grad
+    kw.warp_windowed = _checking(kw, checks1)
+    kw.warp_windowed = _shape_counter(kw, firsts1, counts1, tag)
+    kw.warp_windowed_grad = _checking_grad(kw, checks2, firsts2, counts2, tag)
+    n1, n2 = len(checks1), len(checks2)
+    try:
+        with origin_table_raises(kw):
+            kw.launches = kw.grad_launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            k1, k2 = kw.launches, kw.grad_launches
+    finally:
+        kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
+    require(k1 == len(checks1) - n1 and k2 == len(checks2) - n2,
+            f"{label}: {k1} K1 and {k2} K2 launches, each checked")
+    return out, k1, k2
+
+
+def _require_grad_checks(checks: list, label: str, zero_ct: bool = False) -> float:
     """Every K2 launch of a checked run within its tolerance of the twin
-    (relative to its largest |cg|, which must not be 0); returns the largest
-    error."""
+    (relative to its largest |cg|, which must not be 0; with zero_ct, a
+    launch whose twin's cg is 0 everywhere must give exactly 0, and at least
+    one launch must have a gradient); returns the largest error."""
     err, tol, scale = (torch.stack(v) for v in zip(*checks))
     max_err = err.max().item()
-    require(bool((scale > 0).all()) and bool((err <= tol).all()),
+    live = bool((scale > 0).any()) if zero_ct else bool((scale > 0).all())
+    require(live and bool((err <= tol).all()),
             f"{label}: K2 vs twin at every launch (max_abs_err {max_err:.3e})")
     print(f"{label}: {len(checks)} K2 launches, each within its tolerance of the twin "
           f"(max_abs_err {max_err:.3e})")
@@ -3385,25 +3446,10 @@ def data_phase(kw, card: str, processed: Path) -> tuple:
     # twins at every launch as it goes, counted with window_origins raising
     checks1, checks2, firsts1, counts1, firsts2, counts2 = [], [], {}, {}, {}, {}
     tag = {}
-    real_warp, real_grad = kw.warp_windowed, kw.warp_windowed_grad
 
     def counted(label: str, fn):
-        tag["name"] = label
-        kw.warp_windowed = _checking(kw, checks1)
-        kw.warp_windowed = _shape_counter(kw, firsts1, counts1, tag)
-        kw.warp_windowed_grad = _checking_grad(kw, checks2, firsts2, counts2, tag)
-        n1, n2 = len(checks1), len(checks2)
-        try:
-            with origin_table_raises(kw):
-                kw.launches = kw.grad_launches = 0
-                out = fn()
-                torch.cuda.synchronize()
-                k1, k2 = kw.launches, kw.grad_launches
-        finally:
-            kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
-        require(k1 == len(checks1) - n1 and k2 == len(checks2) - n2,
-                f"{label}: {k1} K1 and {k2} K2 launches, each checked")
-        return out, k1, k2
+        return _counted_run(kw, checks1, checks2, firsts1, counts1, firsts2, counts2, tag,
+                            label, fn)
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
     root = Path(tmp.name)
@@ -3712,6 +3758,388 @@ def calibration_phase(kw, card: str) -> dict:
     return path_numbers(sum(counts.values()), err, total, 1)
 
 
+
+# step 24: VFIMamba training at the trainer's defaults (batch 16, crop 192,
+# scenes made on the card, per-block remat and no whole-forward remat), then
+# the fixed-shape export of utils/aot.py: python -m
+# vfisr_tpu_torch.compile_aot --model rife --precision bf16 at 1080p, one
+# pair, the flagship's timesteps
+MAMBA_MODELS = ("vfimamba", "vfimamba_s")
+MAMBA_TRAIN_STEPS = 3  # timed, after 1 warm-up step
+# K1 per VFIMamba train step: 2 for the data (device_synthetic_batch), then
+# 6 in the forward, two per refinement level (1/4, 1/2) and two at full
+# resolution (per-block remat recomputes the BiMambaBlocks, not the warps);
+# K2: one per warp whose flow has a gradient, all 6 of the forward's
+K1_PER_MAMBA_STEP, K2_PER_MAMBA_STEP = 8, 6
+MAMBA_SCAN_ROWS = 8  # rows of block 0's first scan held against the unrolled loop
+# K1 per run of the exported RIFE (bf16, batch 3 = 1 pair x 3 timesteps):
+# the level warps at 1/4, 1/2 and 1/2 resolution and the final warp
+K1_PER_EXPORT_RUN = 4
+EXPORT_RUNS = 5  # timed runs of the exported program and of the eager call, after one
+EXPORT_TOL = 1e-5  # max abs difference of the exported program's frames from the eager call's
+
+
+def unrolled_scan(dt, A, u, B, C) -> torch.Tensor:
+    """selective_scan as plain autograd sees it: one step at a time, no
+    out=, no chunks, y_t = sum_S h_t C_t."""
+    h = torch.zeros((u.shape[0], u.shape[2], A.shape[1]), dtype=u.dtype, device=u.device)
+    ys = []
+    for t in range(u.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :]
+        ys.append((h * C[:, t, None, :]).sum(-1))
+    return torch.stack(ys, 1)
+
+
+def check_scan_grad(label: str, scan, inputs: tuple) -> None:
+    """The scan Function's output and gradients against autograd through
+    ``unrolled_scan`` on the same inputs and a random cotangent: within
+    1e-4 of each tensor's largest (f32 sums in other orders)."""
+    ins = [v.detach().requires_grad_(True) for v in inputs]
+    gen = torch.Generator(device=ins[2].device).manual_seed(4)
+    gy = torch.randn(ins[2].shape, generator=gen, device=ins[2].device)
+    y = scan(*ins)
+    got = torch.autograd.grad(y, ins, gy)
+    y_ref = unrolled_scan(*ins)
+    want = torch.autograd.grad(y_ref, ins, gy)
+    errs = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            for a, b in zip((y, *got), (y_ref, *want))]
+    names = ("y", "dt", "A", "u", "B", "C")
+    print(f"{label}: selective_scan's Function against autograd through the unrolled loop, "
+          f"{tuple(ins[2].shape)} (L spans {-(-ins[2].shape[1] // 32)} chunks): "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+          + " of each tensor's largest (tolerance 1e-4)")
+    require(all(e <= 1e-4 for e in errs), f"{label}: scan gradient")
+
+
+def check_mamba_grad(kw, label: str, a: dict) -> float:
+    """K2 against its twin at a recorded launch. A refinement level whose
+    head is still at its zero init (a v1 checkpoint, a seeded init) passes
+    its warps a zero cotangent: there K2's outputs must be exactly 0, and
+    the kernel is held against its twin at a random cotangent on the same
+    image and flow."""
+    if a["ct"].abs().max().item() == 0:
+        gflow, cg = kw.warp_windowed_grad(a["img"], a["flow"], a["t"], a["ct"], a["r"],
+                                          a["border"], a["compute_dtype"])
+        require(not gflow.any() and not cg.any(), f"{label}: zero cotangent, zero gradient")
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        a = dict(a, ct=torch.randn(a["ct"].shape, generator=gen).to(a["ct"]))
+        label += " (its cotangent is 0: held at a random one)"
+    return check_warp_grad(kw, label, a)
+
+
+def mamba_train_phase(kw, card: str) -> tuple:
+    """Step 24's training half (module docstring). Returns K1's and K2's
+    numbers over the counted train steps (the timed steps and the
+    trainer's runs)."""
+    import contextlib as cl
+    import io
+
+    from vfisr_tpu_torch.models.sota import vfimamba as tvm
+    from vfisr_tpu_torch.train import __main__ as train_cli
+    from vfisr_tpu_torch.train.train import create_train_state, make_train_step
+    from vfisr_tpu_torch.utils.checkpoint import load_npz, params_to_jax
+
+    def step_maker(module, state):
+        return make_train_step(module, state, use_remat=False)
+
+    weights_before = _weights_state()
+    checks1, checks2, firsts1, counts1, firsts2, counts2, tag = [], [], {}, {}, {}, {}, {}
+    k1_timed = k2_timed = 0
+    tot1 = dict(kernel=0.0, bound=0.0, plain=0.0, library=0.0)
+    tot2 = dict(tot1)
+    max_err1 = max_err2 = 0.0
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mamba_")
+    try:
+        for name in MAMBA_MODELS:
+            t0 = time.perf_counter()
+            npz = ROOT / "weights" / f"{name}.npz"
+            args = train_cli.parse_args(["--model", name])
+            require((args.batch, args.crop, args.data_source) == (TRAIN_BATCH, TRAIN_CROP, "auto"),
+                    "the trainer's defaults: batch 16, crop 192, scenes on the device")
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            model = train_cli._model(name, torch.device("cuda"), args)
+            # the full model from its shipped file; VFIMamba-S's file is not in
+            # the chip copy, so it starts from the seeded init
+            model.load(weights_path=str(npz) if npz.is_file() else None)
+            require(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32),
+                    f"TF32 off after {name}'s load")
+            module = model.trainable()
+            cfg = module.cfg
+            want_width = (256, 12) if name == "vfimamba" else (192, 10)
+            require(cfg.remat and (cfg.d_model, cfg.layers) == want_width and module.training
+                    and all(p.requires_grad for p in module.parameters()),
+                    f"full-width {name} with per-block remat, trainable")
+            state = create_train_state(module.parameters(), learning_rate=TRAIN_LR,
+                                       total_steps=MAMBA_TRAIN_STEPS + 1)
+            step = step_maker(module, state)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            batch = train_cli.batch_maker(name, gen, TRAIN_BATCH, TRAIN_CROP, TRAIN_DETAIL)
+            fixed = batch()
+            n_par = sum(p.numel() for p in module.parameters())
+            print(f"train {name}: {n_par} parameters (d_model {cfg.d_model}, {cfg.layers} blocks, "
+                  f"d_state {cfg.d_state}), {'weights/' + npz.name if npz.is_file() else 'seeded init'}"
+                  f", batch {TRAIN_BATCH}, crop {TRAIN_CROP}, per-block remat")
+            t0 = _phase(f"train_{name}_load", t0)
+
+            # the conv shapes of a step, forward and backward, cuDNN's plan
+            # against cuDNN off, before any timed step
+            with torch.no_grad():
+                calls = conv_calls(module, lambda: module(fixed["img0"], fixed["img1"],
+                                                          fixed["t"]))
+            flop = sum(conv_flop(c, shp) for _, c, shp, _ in calls)
+            print(f"train {name} forward: {len(calls)} convs, {flop / 1e12:.4f} TFLOP (f32 bound "
+                  f"{flop / F32_FLOP_PER_S * 1e3:.3f} ms); {card}")
+            time_convs(f"train {name}", calls, backward=True)
+            t0 = _phase(f"train_{name}_convs", t0)
+
+            # one step, every launch of both kernels recorded and counted, and
+            # block 0's first scan's inputs kept
+            real_warp, real_grad, real_scan = kw.warp_windowed, kw.warp_windowed_grad, \
+                tvm.selective_scan
+            rec1, rec2, scans = [], [], []
+
+            def recording_scan(dt, A, u, B, C):
+                if not scans:
+                    scans.append(tuple(v.detach().clone() for v in (dt, A, u, B, C)))
+                return real_scan(dt, A, u, B, C)
+
+            kw.warp_windowed, kw.warp_windowed_grad = _recording(kw, rec1), _recording_grad(kw, rec2)
+            tvm.selective_scan = recording_scan
+            try:
+                with origin_table_raises(kw):
+                    kw.launches = kw.grad_launches = 0
+                    loss = step(batch()).item()
+                    k1, k2 = kw.launches, kw.grad_launches
+            finally:
+                kw.warp_windowed, kw.warp_windowed_grad = real_warp, real_grad
+                tvm.selective_scan = real_scan
+            print(f"one {name} train step: K1 {k1} launches, K2 {k2}, loss {loss:.6f}")
+            require(k1 == K1_PER_MAMBA_STEP and len(rec1) == k1,
+                    f"{k1} K1 launches in a {name} train step")
+            require(k2 == K2_PER_MAMBA_STEP and len(rec2) == k2,
+                    f"{k2} K2 launches in a {name} train step")
+            require(math.isfinite(loss), "finite loss")
+            require_whole_c(kw, f"train {name}", rec1)
+            require_whole_c(kw, f"train {name}", rec2, grad=True)
+            for j, a in enumerate(rec1 + rec2):
+                check_origins(kw, f"{name} train launch {j}", a)
+            for j, a in enumerate(rec1):
+                max_err1 = max(max_err1, check_warp(kw, f"{name} train launch {j}", a))
+            for j, a in enumerate(rec2):
+                max_err2 = max(max_err2, check_mamba_grad(kw, f"{name} train launch {j}", a))
+            for a in grad_cases(rec2):
+                max_err2 = max(max_err2, check_warp_grad(kw, f"{name} train {a['name']}", a))
+            compare_step_with_twins(kw, module, fixed, step_maker, f"{name} train step")
+            dt, A, u, B, C = scans[0]
+            rows = slice(0, MAMBA_SCAN_ROWS)
+            check_scan_grad(f"{name} block 0 scan, rows 0-{MAMBA_SCAN_ROWS - 1} of "
+                            f"{u.shape[0]}", real_scan, (dt[rows], A, u[rows], B[rows], C[rows]))
+            t0 = _phase(f"train_{name}_checks", t0)
+
+            # where a step's scan time goes: block 0's first scan alone (every
+            # scan of a step at crop 192 has its [rows, L, Di] shape), the
+            # Function's forward and forward + backward; a step runs the
+            # forward twice (the blocks' remat) and the backward once, in
+            # each of its 2 x layers scans
+            ins = [v.requires_grad_(True) for v in (dt, A, u, B, C)]
+            gy = torch.randn_like(u)
+            scan_fwd = time_ms(lambda: real_scan(*ins), 3)
+            scan_fb = time_ms(lambda: torch.autograd.grad(real_scan(*ins), ins, gy), 3)
+            per_step = 2 * cfg.layers * (scan_fwd + scan_fb)
+            del scans, ins, gy
+
+            # the steps, counted and timed (CUDA events)
+            step_ms, losses, k1_run, k2_run, peak_mb = timed_steps(kw, step, batch,
+                                                                   MAMBA_TRAIN_STEPS)
+            require(k1_run == K1_PER_MAMBA_STEP * MAMBA_TRAIN_STEPS
+                    and k2_run == K2_PER_MAMBA_STEP * MAMBA_TRAIN_STEPS,
+                    f"{k1_run} K1 and {k2_run} K2 launches in {MAMBA_TRAIN_STEPS} {name} steps")
+            k1_timed += k1_run
+            k2_timed += k2_run
+            ms = sum(step_ms) / len(step_ms)
+            print(f"train {name}, batch {TRAIN_BATCH}, crop {TRAIN_CROP}, per-block remat: ms/step "
+                  f"{ms:.3f} (data + step; steps: {', '.join(f'{x:.3f}' for x in step_ms)}); "
+                  f"samples/s {TRAIN_BATCH * 1000.0 / ms:.2f}; max_memory_allocated "
+                  f"{peak_mb:.1f} MB; {k1_run} K1 and {k2_run} K2 launches; losses "
+                  f"{', '.join(f'{v:.5f}' for v in losses)}; {card}")
+            print(f"train {name} scan {tuple(u.shape)} x {2 * cfg.layers} per step: forward "
+                  f"{scan_fwd:.3f} ms, forward + backward {scan_fb:.3f} ms (CUDA events); a step's "
+                  f"scans about {per_step:.3f} ms ({100.0 * per_step / ms:.1f}% of {ms:.3f})")
+            s1 = per_shape_totals(kw, f"train {name} K1", "step", rec1, time_launch)
+            s2 = per_shape_totals(kw, f"train {name} K2", "step", rec2, time_grad_launch)
+            for tot, s in ((tot1, s1), (tot2, s2)):
+                for f in tot:
+                    tot[f] += s[f] * MAMBA_TRAIN_STEPS
+            del model, module, state, step, fixed, rec1, rec2
+            torch.cuda.empty_cache()
+            t0 = _phase(f"train_{name}_main", t0)
+
+            # the trainer's entry point, in process: one warm-up and the timed
+            # steps, --out in a temporary directory, every launch checked
+            out = Path(tmp.name) / f"{name}.npz"
+            buf = io.StringIO()
+            torch.cuda.reset_peak_memory_stats()
+            with cl.redirect_stdout(buf):
+                res, k1, k2 = _counted_run(
+                    kw, checks1, checks2, firsts1, counts1, firsts2, counts2, tag,
+                    f"python -m vfisr_tpu_torch.train --model {name}",
+                    lambda: train_cli.run(["--model", name, "--steps", str(1 + MAMBA_TRAIN_STEPS),
+                                           "--out", str(out), "--log-every", "1"]))
+            peak_mb = torch.cuda.max_memory_allocated() / 1e6
+            steps = 1 + MAMBA_TRAIN_STEPS
+            losses = [float(ln.split("loss ")[1].split()[0]) for ln in buf.getvalue().splitlines()
+                      if ln.startswith("step ")]
+            require(out.is_file() and len(losses) == steps
+                    and all(math.isfinite(v) for v in losses), f"{name} trainer: {losses}")
+            require(k1 == K1_PER_MAMBA_STEP * steps and k2 == K2_PER_MAMBA_STEP * steps,
+                    f"{name} trainer: {k1} K1 and {k2} K2 launches in {steps} steps")
+            # the JAX-layout checkpoint read back by the port's load
+            back = tvm.VFIMambaModel(variant=train_cli.MAMBA[name], device="cuda")
+            back.load(weights_path=str(out))
+            flat = load_npz(str(out))
+            mine = params_to_jax(back.module.state_dict())
+            require(set(flat) == set(mine) and all(
+                np.array_equal(flat[k], mine[k]) for k in flat),
+                f"{out.name}: every parameter in the JAX layout, loaded by VFIMambaModel.load")
+            step_ms = [v * 1e3 for v in res["step_s"]]
+            print(f"train {name} through the trainer (python -m vfisr_tpu_torch.train --model "
+                  f"{name} --steps {steps} --out <tmp>, in process; K1 and K2 checked against "
+                  f"their twins as they go): losses {', '.join(f'{v:.5f}' for v in losses)}; ms "
+                  f"per step (host clock, with the checks) first {step_ms[0]:.3f}, then "
+                  f"{', '.join(f'{v:.3f}' for v in step_ms[1:])}; K1 {k1}, K2 {k2}; "
+                  f"max_memory_allocated {peak_mb:.1f} MB; {len(flat)} arrays read back; {card}")
+            del back
+            torch.cuda.empty_cache()
+            _phase(f"train_{name}_trainer", t0)
+    finally:
+        tmp.cleanup()
+    require(_weights_state() == weights_before, "no file under weights/ written or moved")
+    err1 = max(max_err1, _require_checks(checks1, "vfimamba trainer runs"))
+    # VFIMamba-S's refinement heads start at their zero init: until the
+    # second step's update moves them, its level warps' cotangents are 0
+    err2 = max(max_err2, _require_grad_checks(checks2, "vfimamba trainer runs", zero_ct=True))
+    zero = sum(1 for c in (chk[2] for chk in checks2) if c.item() == 0)
+    print(f"vfimamba trainer runs: {zero} of {len(checks2)} K2 launches had a zero cotangent "
+          "(a refinement level at its zero init), each giving exactly 0")
+    del checks1, checks2
+    t0 = time.perf_counter()
+    run1 = _kernel_by_shape(kw, "train vfimamba trainer", "phase", firsts1, counts1)
+    run2 = _kernel_by_shape(kw, "train vfimamba trainer", "phase", firsts2, counts2, grad=True)
+    _phase("train_vfimamba_kernel_timing", t0)
+    by1, by2 = run1.pop("by"), run2.pop("by")
+    n1, n2 = sum(counts1.values()), sum(counts2.values())
+    return (dict(launches=k1_timed + n1, err=err1, by=by1,
+                 **{f: tot1[f] + run1[f] for f in tot1}),
+            dict(launches=k2_timed + n2, err=err2, by=by2,
+                 **{f: tot2[f] + run2[f] for f in tot2}))
+
+
+def export_phase(kw, card: str, rife_npz: Path) -> dict:
+    """Step 24's export half (module docstring). Returns K1's numbers over
+    the exported program's counted runs."""
+    from vfisr_tpu_torch import compile_aot
+    from vfisr_tpu_torch.utils import aot
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_export_")
+    try:
+        path = Path(tmp.name) / "rife_1080p.pt2"
+        argv = ["--model", "rife", "--precision", "bf16", "--height", str(H), "--width", str(W),
+                "--pairs", "1", "--timesteps", ",".join(str(t) for t in TS),
+                "--weights", str(rife_npz), "--output", str(path)]
+        start = time.perf_counter()
+        record = compile_aot.main(argv)
+        export_s = time.perf_counter() - start
+        require(path.is_file() and record["bytes"] == path.stat().st_size > 0,
+                f"compile_aot wrote its artifact: {record}")
+        blob = path.read_bytes()
+        start = time.perf_counter()
+        exported = aot.load_exported(blob)
+        load_s = time.perf_counter() - start
+        fn, model = aot.build_interpolate_fn("rife", TS, "bf16", str(rife_npz), "cuda")
+        require(model.CONFIG.dtype == torch.bfloat16
+                and model.module.config.channels == (256, 160, 112, 80)
+                and next(model.module.parameters()).dtype == torch.bfloat16,
+                "full-width RIFE in bf16 for the eager call")
+        t0 = _phase("export_compile_aot", t0)
+
+        x0, x1 = (game_frame(i, dev, H, W).float()[None] / 255.0 for i in (0, 1))
+        # the exported program's first run: each K1 launch (the op's CUDA
+        # kernel) recorded and counted, window_origins raising
+        recs, real_launch = [], kw.launch
+
+        def recording_launch(img, flow, t, out, r, border, compute_dtype):
+            recs.append(dict(img=img.clone(), flow=flow.clone(),
+                             t=t.clone() if torch.is_tensor(t) else t, r=r, border=border,
+                             compute_dtype=compute_dtype))
+            return real_launch(img, flow, t, out, r, border, compute_dtype)
+
+        kw.launch = recording_launch
+        try:
+            with origin_table_raises(kw), torch.no_grad():
+                kw.launches = 0
+                start = time.perf_counter()
+                got = exported(x0, x1)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - start
+                k1 = kw.launches
+        finally:
+            kw.launch = real_launch
+        with torch.no_grad():
+            want = fn(x0, x1)
+        diff = (got.float() - want.float()).abs().max().item()
+        print(f"export rife bf16 {H}x{W}, 1 pair, t {TS}: compile_aot {export_s:.3f} s "
+              f"({record['bytes']} bytes), torch.export.load {load_s:.3f} s, first run "
+              f"{first_s:.3f} s; exported program against eager interpolate_batch on the same "
+              f"frames: max abs diff {diff:.3e} (tolerance {EXPORT_TOL:g}); K1 {k1} launches "
+              f"through the custom op; {card}")
+        require(tuple(got.shape) == (1, len(TS), H, W, 3) and got.dtype == torch.float32,
+                f"exported output {tuple(got.shape)} {got.dtype}")
+        require(bool(torch.isfinite(got).all()) and diff <= EXPORT_TOL, "exported against eager")
+        require(k1 == K1_PER_EXPORT_RUN == len(recs),
+                f"{k1} K1 launches in the exported program's run")
+        max_err = 0.0
+        for j, a in enumerate(recs):
+            check_origins(kw, f"export launch {j}", a)
+            max_err = max(max_err, check_warp(kw, f"export launch {j}", a))
+        t0 = _phase("export_checks", t0)
+
+        # counted and timed: the exported program against the eager call
+        with origin_table_raises(kw), torch.no_grad():
+            kw.launches = 0
+            run_ms = time_ms(lambda: exported(x0, x1), EXPORT_RUNS, warmup=1)
+            runs = EXPORT_RUNS + 1
+            k1_run = kw.launches
+            eager_ms = time_ms(lambda: fn(x0, x1), EXPORT_RUNS, warmup=1)
+        require(k1_run == K1_PER_EXPORT_RUN * runs, f"{k1_run} K1 launches in {runs} runs")
+        stats = aot.compile_stats(fn, x0, x1)
+        print(f"export compile_stats (rife bf16, 1080p pair): {json.dumps(stats)}")
+        require(stats["lower_s"] > 0 and stats["compile_s"] > 0 and stats["flops"] > 0
+                and stats["peak_bytes"] > 0, "compile_stats")
+        loaded = compile_aot.main(["--load", str(path), "--height", str(H), "--width", str(W)])
+        require(loaded["output_shape"] == [1, len(TS), H, W, 3], f"compile_aot --load: {loaded}")
+        print(f"export run ms per pair: exported program {run_ms:.3f}, eager interpolate_batch "
+              f"{eager_ms:.3f} (CUDA events, {EXPORT_RUNS} runs after one); {card}")
+        t0 = _phase("export_run", t0)
+    finally:
+        tmp.cleanup()
+    tot = per_shape_totals(kw, "export K1", "run", recs, time_launch)
+    # the op's dispatch on the host: the wrapper (checks, then the op, whose
+    # CUDA kernel allocates and launches) against launch alone
+    a = recs[-1]
+    args = (a["img"], a["flow"], a["t"], a["r"], a["border"], a["compute_dtype"])
+    out = torch.empty_like(a["img"])
+    via_op = host_ms(lambda: kw.warp_windowed(*args), 200)
+    direct = host_ms(lambda: kw.launch(a["img"], a["flow"], a["t"], out, a["r"], a["border"],
+                                       a["compute_dtype"]), 200)
+    print(f"export K1 host ms per call at {_label(a)}: through the op (warp_windowed) "
+          f"{via_op:.4f}, launch alone {direct:.4f} (the op's dispatch and checks "
+          f"{via_op - direct:.4f}); {card}")
+    _phase("export_k1_timing", t0)
+    return path_numbers(k1_run, max_err, tot, runs)
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3903,6 +4331,8 @@ def main() -> int:
     finally:
         ingest_tmp.cleanup()
     k1_calibration = calibration_phase(kw, card)
+    k1_mamba, k2_mamba = mamba_train_phase(kw, card)
+    k1_export = export_phase(kw, card, rife_npz)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
@@ -3910,8 +4340,8 @@ def main() -> int:
         kernel_entry("warp_windowed", [k1_flagship, k1_stream_flagship, k1_train, k1_adaptive,
                                        k1_stream_adaptive, k1_safa, k1_safa_train, k1_evaluation,
                                        k1_bench, k1_sweep, k1_triplet, k1_ingest, k1_data,
-                                       k1_calibration]),
-        kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train, k2_data])]}))
+                                       k1_calibration, k1_mamba, k1_export]),
+        kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train, k2_data, k2_mamba])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

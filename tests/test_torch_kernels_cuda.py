@@ -420,3 +420,92 @@ def test_grouped_k2_twice_bit_identical(n, h, w, c):
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert (a[1] - ref_cg).abs().max().item() <= TOL[torch.float32] * ref_cg.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [0.5, "tensor"])
+def test_custom_op_launches_the_kernel(dt, t):
+    """``torch.ops.vfisr_tpu_torch.warp_windowed`` on CUDA tensors: one K1
+    launch per call, equal to the plain twin; its fake kernel gives
+    torch.export the output's shape and dtype."""
+    _needs_card()
+    rng = np.random.default_rng(9)
+    n, h, w, c = 3, 272, 480, 3
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda().to(dt)
+    flow = torch.from_numpy(smooth_flow(rng, n, h, w, 6.0, 1.0)).cuda()
+    tt = torch.tensor([0.25, 0.5, 0.75], device="cuda") if t == "tensor" else None
+    ts = 0.0 if t == "tensor" else t
+    before = tw.launches
+    out = torch.ops.vfisr_tpu_torch.warp_windowed(img, flow, tt, ts, 2, 4, "replicate", dt)
+    torch.cuda.synchronize()
+    assert tw.launches == before + 1
+    ref = tw.warp_windowed_plain(img, flow, ts if tt is None else tt, (2, 4), "replicate", dt)
+    assert out.dtype == dt and _err(out, ref) <= TOL[dt]
+    with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+        fake = torch.ops.vfisr_tpu_torch.warp_windowed(mode.from_tensor(img),
+                                                       mode.from_tensor(flow), None, 1.0, 2, 4,
+                                                       "replicate", dt)
+    assert fake.shape == img.shape and fake.dtype == dt
+    assert tw.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_the_kernel():
+    """A module that warps, exported with torch.export: the op is a node of
+    the program, and running it on the card launches K1."""
+    _needs_card()
+    from vfisr_tpu_torch.utils import aot
+
+    class Warp(torch.nn.Module):
+        def forward(self, img, flow):
+            return tw.warp_windowed(img, flow, 1.0, (2, 4), "replicate", torch.float32) * 2.0
+
+    rng = np.random.default_rng(10)
+    img = torch.from_numpy(rng.random((2, 96, 160, 3), np.float32)).cuda()
+    flow = torch.from_numpy(smooth_flow(rng, 2, 96, 160, 6.0, 1.0)).cuda()
+    program = aot.export_program(Warp(), img, flow)
+    assert "vfisr_tpu_torch.warp_windowed.default" in [str(nd.target)
+                                                       for nd in program.graph.nodes]
+    before = tw.launches
+    out = program.module()(img, flow)
+    torch.cuda.synchronize()
+    assert tw.launches == before + 1
+    ref = tw.warp_windowed_plain(img, flow, 1.0, (2, 4)) * 2.0
+    assert _err(out, ref) <= 2 * TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [48, 20])
+def test_selective_scan_backward_on_the_card(length):
+    """The scan Function's output and gradients on the card against autograd
+    through an unrolled loop (no ``out=``), f32, within 1e-4 of each
+    tensor's largest: the training's horizontal scan length at crop 192
+    (two chunks) and one within a chunk, at VFIMamba-S's width."""
+    _needs_card()
+    from vfisr_tpu_torch.models.sota import vfimamba as tvm
+
+    rng = np.random.default_rng(length)
+    r, di, s = 16, 384, 16
+    dt = np.log1p(np.exp(rng.normal(size=(r, length, di)) - 2.0))
+    A = -np.exp(rng.normal(size=(di, s)))
+    u, B, C = (rng.normal(size=sh) for sh in ((r, length, di), (r, length, s), (r, length, s)))
+    ins = [torch.from_numpy(v.astype(np.float32)).cuda().requires_grad_(True)
+           for v in (dt, A, u, B, C)]
+    gy = torch.from_numpy(rng.normal(size=(r, length, di)).astype(np.float32)).cuda()
+    y = tvm.selective_scan(*ins)
+    got = torch.autograd.grad(y, ins, gy)
+
+    def unrolled(dt, A, u, B, C):
+        h = torch.zeros((r, di, s), device="cuda")
+        ys = []
+        for t in range(length):
+            h = torch.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :]
+            ys.append((h * C[:, t, None, :]).sum(-1))
+        return torch.stack(ys, 1)
+
+    y_ref = unrolled(*ins)
+    want = torch.autograd.grad(y_ref, ins, gy)
+    for name, a, b in zip(("y", "dt", "A", "u", "B", "C"), (y, *got), (y_ref, *want)):
+        err = (a - b).abs().max().item() / b.abs().max().item()
+        assert err <= 1e-4, (name, err)

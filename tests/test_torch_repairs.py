@@ -110,15 +110,23 @@ def _calibrate_lpips_cli(tmp):
     main(["--out", "weights/lpips_heads.npz", "--device", "cpu"])
 
 
+def _compile_aot_cli(tmp):
+    from vfisr_tpu_torch.compile_aot import main
+
+    with pytest.raises(FileNotFoundError):  # no artifact to run
+        main(["--load", str(tmp / "none.pt2"), "--device", "cpu"])
+
+
 @pytest.mark.parametrize("entry", [_sweep, _benchmarks, _experiments_cli, _benchmark_cli,
                                    _extract_cli, _eval_vfi_cli, _eval_sr_cli, _gate_cli,
-                                   _calibrate_router_cli, _calibrate_lpips_cli])
+                                   _calibrate_router_cli, _calibrate_lpips_cli, _compile_aot_cli])
 def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
     """The sweep, the triplet benchmark, the interval extraction (Farneback's
-    f32 convolutions), their CLIs and the held-out evaluation and gate CLIs
-    turn TF32 off before any work (here the harnesses stop early: no
-    interval, no clip; the gate has no checkpoint to score; the calibrations
-    refuse to write over the shipped gate and heads)."""
+    f32 convolutions), their CLIs, the held-out evaluation and gate CLIs
+    and the export CLI turn TF32 off before any work (here the harnesses
+    stop early: no interval, no clip; the gate has no checkpoint to score;
+    the calibrations refuse to write over the shipped gate and heads; the
+    export has no artifact to run)."""
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
         entry(tmp_path)
@@ -128,19 +136,23 @@ def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
 
 
 # the port's device paths: the streaming pipeline and its CLIs, the benches,
-# the harnesses and their CLIs, the trainer, the interval extraction and the
-# held-out evaluation and gate CLIs, the clip renderer and the calibrations
+# the harnesses and their CLIs, the trainer (with its VFIMamba path), the
+# interval extraction and the held-out evaluation and gate CLIs, the clip
+# renderer and the calibrations, and the export and its CLI
 DEVICE_PATHS = ("pipeline", "pipeline.flagship", "pipeline.streaming", "process",
                 "batch_process", "bench", "benchmark", "run_experiments", "train.__main__",
                 "harness", "harness.experiments", "harness.device_sweep", "harness.triplet",
                 "data.extract_intervals", "data.draw", "train.data", "eval_vfi_quality",
                 "eval_sr_quality", "gate_checkpoint", "data.synthetic_clip", "make_synthetic_clip",
-                "calibrate_router", "evaluation.lpips_calibrate", "calibrate_lpips")
+                "calibrate_router", "evaluation.lpips_calibrate", "calibrate_lpips",
+                "models.sota.vfimamba", "utils.aot", "compile_aot")
 
 
 def test_device_paths_import_no_scipy_pandas_matplotlib_or_yaml():
     """The card's machine may lack these: only analysis/ and the statistics
-    CLIs (evaluation/statistics.py imports scipy) may pull them in."""
+    CLIs (evaluation/statistics.py imports scipy) may pull them in, and
+    utils/config.py and analysis/data_analysis.py import yaml and matplotlib
+    on call only (tests/test_torch_config_analysis.py)."""
     code = (
         "import importlib, sys\n"
         f"for m in {DEVICE_PATHS!r}:\n"

@@ -14,5 +14,7 @@ The package imports torch, numpy and the standard library only. The
 repo's one TPU kernel, the windowed warp, is two CUDA kernels in
 ``csrc/warp_windowed.cu``: the warp (K1) and its flow gradient (K2, the
 backward of ``core/warp.py::_WindowedWarp``), built with nvcc at first use
-and bound with ctypes (``ops/cuda/warp.py``).
+and bound with ctypes (``ops/cuda/warp.py``). K1 is reached through the
+custom op ``torch.ops.vfisr_tpu_torch.warp_windowed``, so ``torch.export``
+(``utils/aot.py``) keeps it as one node of an exported program.
 """

@@ -104,7 +104,9 @@ class _WindowedWarp(torch.autograd.Function):
     ``vfisr_tpu/core/warp.py::_pallas_warp_diff`` and its VJP).
 
     forward: the warp kernel, K1 (``ops.cuda.warp.warp_windowed``, read
-    from the module at each call). backward: the flow and t gradients from
+    from the module at each call), which reaches it through the custom op
+    ``torch.ops.vfisr_tpu_torch.warp_windowed``: ``torch.export`` traces
+    this forward and keeps that op as a node. backward: the flow and t gradients from
     K2 (``warp_windowed_grad``; each output pixel depends on its own flow
     only, so no scatter); the image cotangent, where img needs one, as the
     reference takes it for ``img_grad``: autograd of the exact

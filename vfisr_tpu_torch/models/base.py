@@ -93,6 +93,8 @@ CUDNN_WINS = frozenset({
     (176, 176, 3, 16, 48, 48),  # SAFA's 176->176 convs, training: 1.038 against 1.857 ms
     (192, 48, 1, 16, 96, 96),  # SPAN x2's conv_cat, training: 0.188 against 0.310 ms
     (192, 48, 1, 16, 48, 48),  # SPAN x4's conv_cat, training: 0.072 against 0.250 ms
+    (512, 128, 3, 16, 24, 24),  # VFIMamba's Conv_3, training: 0.553 against 0.669 ms
+    (384, 128, 3, 16, 24, 24),  # VFIMamba-S's Conv_3, training: 0.416 against 0.550 ms
     # LPIPS's AlexNet conv4 and conv5 on a 1080p pair (evaluation/lpips.py),
     # chip_smoke.py's evaluation phase: 0.700 against 0.886 ms, 0.490
     # against 0.594 ms
@@ -110,8 +112,9 @@ def cudnn_wins(conv: torch.nn.Conv2d, shape) -> bool:
 
 def planned_conv(conv: torch.nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """conv(x), without cuDNN unless ``cudnn_wins`` at x's shape: the rule
-    of SAFA's 1/4-resolution convs at 176 channels and its dec_c, and of
-    SPAN's conv_cat. At every other measured shape cuDNN lost (SAFA's 1080p
+    of SAFA's 1/4-resolution convs at 176 channels and its dec_c, of
+    SPAN's conv_cat and of VFIMamba's decoder conv (Conv_3; its other convs
+    keep cuDNN, which won at each of their training shapes). At every other measured shape cuDNN lost (SAFA's 1080p
     tiles: 24-361 ms and 17-34 GB of workspace against 1-2 ms; its
     training flow*_a, dec_a and dec_c; SPAN's conv_cat at 1080p), and a
     shape never measured takes PyTorch's own convolution too: where that

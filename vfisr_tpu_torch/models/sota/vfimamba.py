@@ -21,7 +21,10 @@ those steps only, runs the recurrence one step at a time
 (``h = a_t h + b_t``, one ``addcmul`` launch per step, state [rows, Di, S])
 and forms ``y = h . C`` for the chunk with one batched matmul. It is the
 same function as the reference's scan followed by ``sum(h * C)``, with
-f32 sums taken in another order.
+f32 sums taken in another order. Its gradient (``_SelectiveScan``) is the
+adjoint recurrence run backwards over the same chunks, from the states the
+forward kept at the chunks' boundaries; with ``MambaConfig.remat`` each
+block is recomputed in the backward pass, as the reference trains it.
 
 Flax defaults kept: ``nn.gelu`` is the tanh approximation, ``LayerNorm``
 has eps 1e-6, ``nn.Conv(padding=1)`` pads symmetrically, the causal
@@ -35,6 +38,7 @@ mirror the Flax tree (``Conv_0``..``Conv_6``, ``block<i>``, ``t_embed``,
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -42,11 +46,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vfisr_tpu_torch.core.frames import pad_to_multiple, unpad
 from vfisr_tpu_torch.core.resize import resize, scale_size
 from vfisr_tpu_torch.core.warp import backward_warp
-from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, upscale_frame, without_cudnn
+from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, planned_conv, upscale_frame
 
 SCAN_CHUNK = 32  # steps of L per chunk of the selective scan
 
@@ -62,6 +67,87 @@ class MambaConfig:
     # coarse-to-fine flow refinement below the 1/8 trunk (levels at 1/4 and
     # 1/2 for 2); zero-init, so a v1 checkpoint stays output-identical
     refine_levels: int = 2
+    # training: recompute each BiMambaBlock in the backward pass from its
+    # input (torch.utils.checkpoint; the reference's nn.remat(BiMambaBlock)),
+    # keeping only the blocks' [rows, L, d_model] boundaries
+    remat: bool = False
+
+
+def _scan(dt: torch.Tensor, A: torch.Tensor, u: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+          boundaries: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The chunked loop of ``selective_scan``; copies the state entering
+    chunk k into ``boundaries[k]`` ([chunks, R, Di, S]) when one is given."""
+    r, length, di = u.shape
+    du = dt * u
+    y = torch.empty_like(u)
+    h = torch.zeros((r, di, A.shape[1]), dtype=u.dtype, device=u.device)
+    for k, c0 in enumerate(range(0, length, SCAN_CHUNK)):
+        c1 = min(length, c0 + SCAN_CHUNK)
+        if boundaries is not None:
+            boundaries[k].copy_(h)
+        a = torch.exp(dt[:, c0:c1, :, None] * A)
+        b = du[:, c0:c1, :, None] * B[:, c0:c1, None, :]
+        hs = torch.empty_like(a)
+        for j in range(c1 - c0):
+            h = torch.addcmul(b[:, j], a[:, j], h, out=hs[:, j])
+        y[:, c0:c1] = torch.matmul(hs, C[:, c0:c1, :, None])[..., 0]
+    return y
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """``selective_scan`` with its gradient (the reference's comes from
+    ``jax.lax.associative_scan``'s autodiff).
+
+    forward: ``_scan``, saving its inputs and the state entering each chunk
+    ([R, Di, S] per chunk). backward: the chunks from last to first; each
+    recomputes its states from its saved boundary and runs the adjoint
+    recurrence g_h_t = gy_t C_t + a_{t+1} g_h_{t+1} one step at a time, so
+    memory stays at [R, SCAN_CHUNK, Di, S]. Per chunk, with h_{t-1} the
+    state before step t: g_C_t = sum_Di h_t gy_t, g_a_t = g_h_t h_{t-1},
+    g_b_t = g_h_t; a = exp(dt A) and b = (dt u) B chain them into dt, A, u
+    and B.
+    """
+
+    @staticmethod
+    def forward(ctx, dt, A, u, B, C):
+        r, length, di = u.shape
+        boundaries = u.new_empty((-(-length // SCAN_CHUNK), r, di, A.shape[1]))
+        y = _scan(dt, A, u, B, C, boundaries)
+        ctx.save_for_backward(dt, A, u, B, C, boundaries)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        dt, A, u, B, C, boundaries = ctx.saved_tensors
+        length = u.shape[1]
+        du = dt * u
+        g_dt, g_du = torch.empty_like(dt), torch.empty_like(u)
+        g_B, g_C = torch.empty_like(B), torch.empty_like(C)
+        g_A = torch.zeros_like(A)
+        carry = torch.zeros_like(boundaries[0])  # a_{t+1} g_h_{t+1}
+        starts = list(range(0, length, SCAN_CHUNK))
+        for k in reversed(range(len(starts))):
+            c0 = starts[k]
+            c1 = min(length, c0 + SCAN_CHUNK)
+            a = torch.exp(dt[:, c0:c1, :, None] * A)
+            b = du[:, c0:c1, :, None] * B[:, c0:c1, None, :]
+            hs = torch.empty((a.shape[0], c1 - c0 + 1, *a.shape[2:]), dtype=a.dtype,
+                             device=a.device)  # h_{c0-1} .. h_{c1-1}
+            hs[:, 0] = boundaries[k]
+            for j in range(c1 - c0):
+                torch.addcmul(b[:, j], a[:, j], hs[:, j], out=hs[:, j + 1])
+            gy_c, c_c = gy[:, c0:c1], C[:, c0:c1]
+            gh = torch.empty_like(a)
+            for j in reversed(range(c1 - c0)):
+                torch.addcmul(carry, gy_c[:, j, :, None], c_c[:, j, None, :], out=gh[:, j])
+                carry = a[:, j] * gh[:, j]
+            g_C[:, c0:c1] = torch.einsum("rjds,rjd->rjs", hs[:, 1:], gy_c)
+            g_la = gh * hs[:, :-1] * a  # d loss / d (dt A)
+            g_dt[:, c0:c1] = torch.einsum("rjds,ds->rjd", g_la, A)
+            g_A += torch.einsum("rjds,rjd->ds", g_la, dt[:, c0:c1])
+            g_du[:, c0:c1] = torch.einsum("rjds,rjs->rjd", gh, B[:, c0:c1])
+            g_B[:, c0:c1] = torch.einsum("rjds,rjd->rjs", gh, du[:, c0:c1])
+        return g_dt + g_du * u, g_A, g_du * dt, g_B, g_C
 
 
 def selective_scan(dt: torch.Tensor, A: torch.Tensor, u: torch.Tensor, B: torch.Tensor,
@@ -71,21 +157,12 @@ def selective_scan(dt: torch.Tensor, A: torch.Tensor, u: torch.Tensor, B: torch.
     dt, u: [R, L, Di]; A: [Di, S]; B, C: [R, L, S] -> y [R, L, Di]. A loop
     over L in chunks of SCAN_CHUNK steps (module docstring): memory
     [R, SCAN_CHUNK, Di, S] for each of a, b and the chunk's states, never
-    [R, L, Di, S].
+    [R, L, Di, S]. Differentiable (``_SelectiveScan``) where an input needs
+    a gradient; otherwise the loop alone, which saves nothing.
     """
-    r, length, di = u.shape
-    du = dt * u
-    y = torch.empty_like(u)
-    h = torch.zeros((r, di, A.shape[1]), dtype=u.dtype, device=u.device)
-    for c0 in range(0, length, SCAN_CHUNK):
-        c1 = min(length, c0 + SCAN_CHUNK)
-        a = torch.exp(dt[:, c0:c1, :, None] * A)
-        b = du[:, c0:c1, :, None] * B[:, c0:c1, None, :]
-        hs = torch.empty_like(a)
-        for j in range(c1 - c0):
-            h = torch.addcmul(b[:, j], a[:, j], h, out=hs[:, j])
-        y[:, c0:c1] = torch.matmul(hs, C[:, c0:c1, :, None])[..., 0]
-    return y
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (dt, A, u, B, C)):
+        return _SelectiveScan.apply(dt, A, u, B, C)
+    return _scan(dt, A, u, B, C)
 
 
 class S6(nn.Module):
@@ -192,6 +269,8 @@ class VFIMambaNet(nn.Module):
         x = torch.stack([f0, f1], dim=-2) + self.t_embed(t)[:, None, None, None, :]
         for i in range(self.cfg.layers):
             block = getattr(self, f"block{i}")
+            if self.cfg.remat and torch.is_grad_enabled():
+                block = functools.partial(checkpoint, block, use_reentrant=False)
             if i % 2 == 0:  # horizontal: rows are the batch, frames interleaved along W
                 x = block(x.reshape(n * h8, w8 * 2, d)).reshape(n, h8, w8, 2, d)
             else:  # vertical: columns are the batch, frames interleaved along H
@@ -207,8 +286,7 @@ class VFIMambaNet(nn.Module):
         n, h, w, _ = img0.shape
         t = torch.as_tensor(timestep, dtype=img0.dtype, device=img0.device).reshape(-1, 1)
         feat = self._trunk(self._encode(img0), self._encode(img1), t)
-        with without_cudnn():  # see base.without_cudnn
-            feat = self.Conv_3(feat)
+        feat = planned_conv(self.Conv_3, feat)  # cuDNN only where it won (base.CUDNN_WINS)
         out = self.Conv_4(F.silu(feat))  # flow (4) + mask (1) at 1/8
 
         if cfg.refine_levels == 0:
@@ -305,6 +383,13 @@ class VFIMambaModel(BaseModel):
             module.load_state_dict(params_from_jax(flat))
         self.module = module.to(self.device).eval().requires_grad_(False)
         self._loaded = True
+
+    def trainable(self) -> VFIMambaNet:
+        """The loaded module in training mode, every parameter requiring a
+        gradient (``load`` leaves it frozen for inference)."""
+        if self.module is None:
+            raise RuntimeError("load() the model before training it")
+        return self.module.train().requires_grad_(True)
 
     def interpolate_batch(self, x0: torch.Tensor, x1: torch.Tensor, timestamps) -> torch.Tensor:
         """[N,H,W,3] pair -> [N,T,H,W,3]: one net call on the N*T batch

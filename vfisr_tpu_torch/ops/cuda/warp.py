@@ -45,6 +45,14 @@ added in chunk order by a second kernel (deterministic, no atomics).
 ``warp_windowed_grad_plain`` are the same functions in plain PyTorch. The
 wrappers use them for tensors on the CPU; on a CUDA tensor they launch the
 kernel or raise.
+
+``warp_windowed`` goes through the custom op
+``torch.ops.vfisr_tpu_torch.warp_windowed`` (registered when this module
+is imported): its CUDA kernel is ``launch``, its CPU kernel
+``warp_windowed_plain``, each chosen by the tensors' device, and a fake
+kernel gives ``torch.export`` the output's shape, so an exported program
+(``utils/aot.py``) holds K1 as one node and launches the kernel when it
+runs.
 """
 
 from __future__ import annotations
@@ -280,16 +288,51 @@ def warp_windowed(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
     t: scalar or [N]; r: int or (ry, rx) residual radius; border:
     'replicate' or 'constant'; compute_dtype: window dtype (bf16 as in the
     TPU kernel's compute_dtype). Any C (in channel groups where the window
-    needs them, ``plan``). Returns img's dtype. CPU tensors go to
-    ``warp_windowed_plain``; CUDA tensors to the kernel.
+    needs them, ``plan``). Returns img's dtype. Goes through the custom op
+    ``torch.ops.vfisr_tpu_torch.warp_windowed``, which ``torch.export``
+    keeps as one node: CPU tensors take ``warp_windowed_plain``, CUDA
+    tensors the kernel.
     """
     _check(img, flow, border, compute_dtype)
-    if img.device.type == "cpu":
-        return warp_windowed_plain(img, flow, t, r, border, compute_dtype)
-    _check_cuda("warp_windowed", img, flow)
+    if img.device.type != "cpu":
+        _check_cuda("warp_windowed", img, flow)
+    ry, rx = _radii(r)
+    if isinstance(t, (int, float)):
+        t_tensor, t_scalar = None, float(t)
+    else:
+        t_tensor, t_scalar = torch.as_tensor(t, dtype=torch.float32, device=img.device), 0.0
+    return torch.ops.vfisr_tpu_torch.warp_windowed(img, flow, t_tensor, t_scalar, ry, rx, border,
+                                                   compute_dtype)
+
+
+# The op's schema: warp_windowed's arguments with t split into a tensor (or
+# None) and a number, and r into (ry, rx). Defined with torch.library's
+# Library API: torch.library.custom_op wraps each kernel in a guard that
+# imports torch._dynamo at the op's first call (seconds per process).
+_LIB = torch.library.Library("vfisr_tpu_torch", "DEF")
+_LIB.define("warp_windowed(Tensor img, Tensor flow, Tensor? t, float t_scalar, int ry, int rx, "
+            "str border, ScalarType compute_dtype) -> Tensor")
+
+
+def _warp_windowed_cuda(img, flow, t, t_scalar, ry, rx, border, compute_dtype):
+    """The op on CUDA tensors: one launch of K1 (``launch``)."""
     out = torch.empty_like(img)
-    launch(img, flow, t, out, r, border, compute_dtype)
+    launch(img, flow, t_scalar if t is None else t, out, (ry, rx), border, compute_dtype)
     return out
+
+
+def _warp_windowed_cpu(img, flow, t, t_scalar, ry, rx, border, compute_dtype):
+    return warp_windowed_plain(img, flow, t_scalar if t is None else t, (ry, rx), border,
+                               compute_dtype)
+
+
+_LIB.impl("warp_windowed", _warp_windowed_cuda, "CUDA")
+_LIB.impl("warp_windowed", _warp_windowed_cpu, "CPU")
+
+
+@torch.library.register_fake("vfisr_tpu_torch::warp_windowed")
+def _warp_windowed_fake(img, flow, t, t_scalar, ry, rx, border, compute_dtype):
+    return torch.empty_like(img)
 
 
 def launch(img: torch.Tensor, flow: torch.Tensor, t, out: torch.Tensor, r, border: str,

@@ -1,14 +1,17 @@
-"""Train RIFE, SAFA or SPAN on synthetic gaming scenes or on preprocessed
-triplets (port of ``scripts/train.py`` for ``--model
-rife|rife_lite|safa|span|span_x4``).
+"""Train RIFE, VFIMamba, SAFA or SPAN on synthetic gaming scenes or on
+preprocessed triplets (port of ``scripts/train.py``).
 
     python -m vfisr_tpu_torch.train --model rife --steps 2000 --batch 16
     python -m vfisr_tpu_torch.train --model rife --data data/processed --steps 20000
     python -m vfisr_tpu_torch.train --model safa --data-source host --steps 2000
+    python -m vfisr_tpu_torch.train --model vfimamba_s --out /tmp/vfimamba_s.npz
     python -m vfisr_tpu_torch.train --model span_x4 --steps 1 --batch 1 \\
         --crop 32 --device cpu --out /tmp/span_x4.npz
 
 The VFI models (rife, rife_lite) train on scenes at --crop with remat.
+VFIMamba (vfimamba, vfimamba_s) trains on the same batches with its
+BiMambaBlocks recomputed one at a time in the backward pass
+(``MambaConfig.remat``) and no whole-forward remat, as the reference does.
 SAFA, the joint VFI+SR net, renders its scenes at 2x --crop, takes the
 endpoints area-resized to --crop and is supervised on the midpoint at 2x
 (remat). SPAN (x2; span_x4: x4) trains on crisp unwarped scenes at --crop
@@ -21,7 +24,7 @@ default checkpoint unless --out is given or --resume names it.
 Where the batches come from:
 - ``--data DIR``: random crops of the preprocessed triplets under DIR
   (``train/data.py::TripletCropDataset``), read and cropped by one producer
-  thread, rife and rife_lite only. SAFA needs ground truth at twice the
+  thread, the VFI models only (rife, rife_lite, vfimamba, vfimamba_s). SAFA needs ground truth at twice the
   input's size and SPAN's batches are LR/HR pairs, which triplets do not
   give: both are refused (the reference trains SPAN on synthetic scenes
   instead, without a word).
@@ -31,12 +34,11 @@ Where the batches come from:
 - ``--data-source host``: the reference's host generators
   (``train/data.py``) on one producer thread: SPAN takes
   ``synthetic_sr_batch``, SAFA ``synthetic_pool_iter`` at 2x --crop with
-  the endpoints area-resized to --crop, RIFE ``synthetic_pool_iter``.
+  the endpoints area-resized to --crop, RIFE and VFIMamba
+  ``synthetic_pool_iter``.
 A producer keeps a queue of 4 batches; an exception in it is raised again
 in the step loop, so the run fails (the reference's producer prints it and
 ends the queue, and its run ends early with "Done").
-
-Still to port (ROADMAP): VFIMamba.
 """
 
 from __future__ import annotations
@@ -56,14 +58,15 @@ from vfisr_tpu_torch.core.resize import resize
 from vfisr_tpu_torch.models.sota.rife import RIFELiteModel, RIFEModel
 from vfisr_tpu_torch.models.sota.safa import SAFAModel
 from vfisr_tpu_torch.models.sota.span import SPANModel
+from vfisr_tpu_torch.models.sota.vfimamba import VFIMambaModel
 from vfisr_tpu_torch.train.data import TripletCropDataset, synthetic_pool_iter, synthetic_sr_batch
 from vfisr_tpu_torch.train.device_data import device_sr_batch, device_synthetic_batch
 from vfisr_tpu_torch.train.train import create_train_state, make_sr_train_step, make_train_step
 from vfisr_tpu_torch.utils.checkpoint import params_to_jax, save_npz
 
 _WEIGHTS = Path(__file__).resolve().parents[2] / "weights"
-MODELS = ("rife", "rife_lite", "safa", "span", "span_x4")
-NOT_PORTED = ("vfimamba", "vfimamba_s")
+MODELS = ("rife", "rife_lite", "vfimamba", "vfimamba_s", "safa", "span", "span_x4")
+MAMBA = {"vfimamba": "full", "vfimamba_s": "small"}
 SR_SCALE = {"span": 2, "span_x4": 4}
 QUEUE_DEPTH = 4  # batches a producer thread keeps ready, as the reference's
 
@@ -75,9 +78,9 @@ def _radius(text: str) -> tuple:
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="python -m vfisr_tpu_torch.train",
                                      description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", default="rife_lite", choices=[*MODELS, *NOT_PORTED])
+    parser.add_argument("--model", default="rife_lite", choices=MODELS)
     parser.add_argument("--data", default=None,
-                        help="preprocessed triplet dir (rife, rife_lite; default: synthetic "
+                        help="preprocessed triplet dir (the VFI models; default: synthetic "
                         "scenes)")
     parser.add_argument("--data-source", default="auto", choices=["auto", "device", "host"],
                         help="synthetic scenes: 'device' (and 'auto') render them on the "
@@ -110,6 +113,12 @@ def _model(name: str, device: torch.device, args: argparse.Namespace):
         return SAFAModel(device=str(device))
     if name in SR_SCALE:
         return SPANModel(scale=SR_SCALE[name], device=str(device))
+    if name in MAMBA:
+        model = VFIMambaModel(variant=MAMBA[name], device=str(device))
+        # per-block remat (scripts/train.py:94-102): the scan's backward
+        # temporaries are per block, so only the blocks' boundaries are kept
+        model.cfg = dataclasses.replace(model.cfg, remat=True)
+        return model
     cls = RIFEModel if name == "rife" else RIFELiteModel
     overrides = {}
     if args.level_radius:
@@ -213,9 +222,6 @@ def run(argv=None) -> dict:
     waits for the card to read its loss back), wait_s: each step's wait for
     its batch}."""
     args = parse_args(argv)
-    if args.model in NOT_PORTED:
-        raise SystemExit(f"--model {args.model} is not ported to vfisr_tpu_torch yet "
-                         f"(ROADMAP.md); this trainer takes {', '.join(MODELS)}")
     if args.data is not None and args.model == "safa":
         raise SystemExit("safa joint training needs GT at 2x the input resolution; triplet "
                          "data has same-res midpoints: train on synthetic scenes (omit --data)")
@@ -244,7 +250,10 @@ def run(argv=None) -> dict:
     module = model.trainable()
     state = create_train_state(module.parameters(), learning_rate=args.lr,
                                total_steps=args.steps)
-    step_fn = (make_sr_train_step if args.model in SR_SCALE else make_train_step)(module, state)
+    if args.model in SR_SCALE:
+        step_fn = make_sr_train_step(module, state)
+    else:  # VFIMamba recomputes per block instead of the whole forward
+        step_fn = make_train_step(module, state, use_remat=args.model not in MAMBA)
     if args.data is not None:
         ds = TripletCropDataset(args.data, crop=args.crop, seed=args.seed, device=str(device))
         print(f"Training {args.model} on {len(ds)} triplet crops from {args.data}", flush=True)
