@@ -161,14 +161,14 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    equal to the routes' sum; the HUD and cut composites as in step 9;
    37 frames out. Prints fps and the timers as step 15;
 17. evaluates with the evaluation library (vfisr_tpu_torch/evaluation/) on
-   the card: 7 frames of step 4's 1920x1080 scene (its rectangle moving 8 px
+   the card: EVAL_FRAMES (5) frames of step 4's 1920x1080 scene (its rectangle moving 8 px
    per frame under the HUD box) as ground truth, the odd ones interpolated
    from their neighbours by get_model("adaptive", load=True) (t = 0.5) as
    the prediction. With K1's count set to 0 before and read after and
    ``window_origins`` raising: QualityEvaluator("cuda").evaluate,
    evaluate_flolpips, evaluate_temporal_consistency,
    run_comprehensive_benchmark and detect_ui_regions (12 K1 launches per
-   Farneback flow at 1080p, 4 flows per pair: 288). Checks: the launch
+   Farneback flow at 1080p, 4 flows per pair: 192). Checks: the launch
    count; QualityEvaluator leaves TF32 off; LPIPS in its calibrated-heads
    mode; finite metrics in range, PSNR inf at the endpoints and above 20 dB
    at the midpoints, the frame counts, UI masks covering the HUD; PSNR
@@ -182,8 +182,9 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    AlexNet's conv lines (time_convs), and K1 per launch shape as in step 7;
 18. runs the port's bench, vfisr_tpu_torch.bench.measure at its defaults
    (5 + 50 pairs of fused_stream_step 1080p -> 1440p, CUDA events per
-   pair): once with every K1 launch held against its twin and its origins
-   as it goes, then counted with ``window_origins`` raising (18 K1
+   pair): once with 5 + BENCH_CHECK_PAIRS (10) pairs and every K1 launch
+   held against its twin and its origins as it goes, then at its defaults
+   counted with ``window_origins`` raising (18 K1
    launches per pair). Prints its record on an earlier line; requires a
    finite, positive value, 3000 / the median ms per pair;
 19. runs the experiment sweep (harness/experiments.py, harness/device_sweep.py)
@@ -218,12 +219,12 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    _chunk_program per method (CUDA events); K1 per launch shape as in step
    7;
 20. runs the triplet benchmark (harness/triplet.py) on a temporary
-   processed clip: 5 input frames of step 9's scene at 1920x1080 panning 4
+   processed clip: 3 input frames of step 9's scene at 1920x1080 panning 4
    px per frame, ground truth rendered at 2560x1440 at t = 0.25/0.5/0.75
-   (3 per triplet), metadata.json with spatial_scale 1.3333, 4 triplets.
+   (3 per triplet), metadata.json with spatial_scale 1.3333, 2 triplets.
    run_benchmarks(models="lanczos,rife,adaptive,safa", warmup=1) once with
    every K1 launch (whole-C and grouped) checked as it goes, then counted
-   with ``window_origins`` raising. Checks: no error row, 4 triplets per
+   with ``window_origins`` raising. Checks: no error row, 2 triplets per
    model, finite quality. Prints per model PSNR, SSIM, LPIPS, time_ms mean
    and p50, throughput_fps and vram_mb; then ``python -m
    vfisr_tpu_torch.benchmark -m lanczos --max-triplets 2`` as a subprocess,
@@ -254,7 +255,7 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    each GT PNG equal to its decoded source frame. run_benchmarks(models="lanczos,rife") on that
    clip, its K1 launches checked as they go: 9 triplets per model, no error
    row. ``python -m vfisr_tpu_torch.run_full_benchmark`` (light experiments,
-   all 3 intervals): 12 rows per interval, none FAILED; analyze_statistics,
+   all 3 intervals, --max-frames INGEST_FULL_KEYFRAMES): 12 rows per interval, none FAILED; analyze_statistics,
    normalize_data and final_analysis on its results, uafi_default and
    ughi_default with n = 3 paired intervals. ``python -m
    vfisr_tpu_torch.evaluate_quality --comprehensive`` on interval 1's
@@ -268,7 +269,7 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    and t equal to the CPU's read_png, area resize and crop at a fresh
    random.Random(seed) replay of its draws, and read_png ms per 1080p and
    per 1440p frame. Then the trainer's run() at full width, batch 16, crop
-   192: ``--model rife --data <clip> --steps 3``, and ``--data-source
+   192: ``--model rife --data <clip> --steps 2``, and ``--data-source
    host`` for rife (4 steps: a fresh batch, then three augmented), span_x4
    (2) and safa (2); every K1 and K2 launch held against its twin (and K1's
    origins against window_origins) as it goes, counted with
@@ -276,23 +277,23 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    SAFA step: no data warps), finite losses, a checkpoint each; prints ms
    per step and the step loop's wait on the producer's queue per step, and
    synthetic_batch and augment_vfi_batch ms at batch 16, crop 192.
-   eval_vfi_quality and eval_sr_quality (both scenes) at their defaults on
+   eval_vfi_quality and eval_sr_quality (both scenes; --samples EVAL_CLI_SAMPLES) on
    the card (their tables; every PSNR and SSIM finite; the SR models
    launch no warp). gate_checkpoint on copies in a temporary directory: the
-   3-step --data checkpoint as the candidate against a copy of
+   2-step --data checkpoint as the candidate against a copy of
    weights/rife.npz as --incumbent-weights, --samples 8: its record, and
    the file at --weights afterwards byte-equal to whichever scored higher.
    No file under weights/ is written or moved. K1 and K2 per launch shape
    over the whole step.
 23. calibrates on the card ("calibration"), in this process: renders a
-   hard and a routing clip of 2 s at 1920x1080, 60 fps (``python -m
+   hard and a routing clip of 1 s at 1920x1080, 60 fps (``python -m
    vfisr_tpu_torch.make_synthetic_clip``, seeds 431 and 432) into a temporary
-   directory, each 120 frames, the hard clip's HUD box equal in every frame,
+   directory, each 60 frames, the hard clip's HUD box equal in every frame,
    no two consecutive routing frames equal, and prints ms per frame of the
    textures, the composite and the Y4M write; runs ``calibrate_router`` on
-   them at quality 2560x1440 with full-width RIFE and VFIMamba (``--pairs 6
-   --stride 4 --native-pairs 6 --samples 8 --scene-worlds 2 --scene-seconds
-   2``, ``--out`` in the temporary directory), every K1 launch held against
+   them at quality 2560x1440 with full-width RIFE and VFIMamba (``--pairs 4
+   --stride 4 --native-pairs 4 --samples 4 --scene-worlds 2 --scene-seconds
+   1``, ``--out`` in the temporary directory), every K1 launch held against
    its twin with equal origins as it goes, counted with ``window_origins``
    raising; prints each calibrated value beside the shipped file's (experts'
    dB, crossover px, ``warped_ssim_threshold``, bins: measurements, not
@@ -321,7 +322,7 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    rows 0-7 of block 0's first scan, its inputs taken from the step
    (tolerance 1e-4 of each tensor's largest); MAMBA_TRAIN_STEPS timed steps
    after one, counted (ms/step, samples/s, peak memory); then ``python -m
-   vfisr_tpu_torch.train --model <name> --steps 4 --out <tmp>`` in process,
+   vfisr_tpu_torch.train --model <name> --steps 3 --out <tmp>`` in process,
    every K1 and K2 launch held against its twin as it goes and counted with
    ``window_origins`` raising, finite losses, and its npz (the JAX
    package's layout) read back whole by ``VFIMambaModel.load``. Then the
@@ -336,6 +337,39 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    timed; ``compile_stats`` and ``compile_aot --load`` printed; the host
    time of a K1 call through the op against ``launch`` alone. No file
    under weights/ is written. K1 and K2 per launch shape.
+25. scale-out and the blind study. (a) The data-parallel train step
+   (``make_train_step(..., mesh=)``, ``parallel/mesh.py``) of full-width
+   RIFE from weights/rife.npz at the trainer's defaults (batch 16, crop 192,
+   remat, lr 2e-4; f32 with TF32 off; deterministic cuDNN), one batch of
+   scenes made on the card, DP_STEPS steps (the first at lr 0): in this
+   process without a mesh (the reference), over NCCL on every visible card
+   (world 1 on a one-card machine: this process is the rank), and over a
+   gloo group of DP_GLOO_RANKS ranks spawned on one card
+   (``parallel/launch.py``). Each rank's losses, its first step's averaged,
+   clipped gradients and its parameters after the steps within DP_TOL
+   (relative) of the reference's, every rank's parameters equal. The gloo
+   ranks' reference is the blockwise step (``_blockwise_step``: the same
+   two half-batch blocks in this process, their gradients summed and
+   halved): at batch 8 the f32 convs take other algorithms than at 16, and
+   the bf16 warp windows turn those last-bit differences into bf16 steps
+   (printed: each run's distance from the whole-batch step). Every K1
+   and K2 launch of every run (each rank's too) against its twin as it
+   goes, counted with ``window_origins`` raising; ms per step of each
+   (CUDA events, DP_TIMED steps): NCCL's against the reference's is the
+   cost of the all-reduce. (b) In the gloo ranks, SPAN x2 (weights/span_x2.npz)
+   on step 4's first 1920x1080 frame sharded on H over a data 1 x spatial 2
+   mesh (``spatial_apply``: a halo of the model's 21-row reach from each
+   neighbour) against the unsharded call (SHARD_TOL), ms of both. (c) The
+   blind study on step 21's clip, its CLIs in process through their
+   ``main(argv)``: ``gui.benchmark_proper`` over its five methods at
+   2560x1440 / 120 fps on interval STUDY_INTERVAL cut to STUDY_KEYFRAMES
+   keyframes, ``gui.generate_clips --preset sota``, ``prepare_blind_study``
+   on the first's directory. Checks: every K1 launch against its twin;
+   every video (Y4M where mp4 cannot be written) holds the keyframes and 3
+   frames between each pair, the pairs twice the width; the metadata's
+   PSNR and SSIM of degraded and lanczos against the same frames scored on
+   the CPU; ``extract_clip``'s cut of a Y4M equal to the source's frames.
+   Prints ms and K1 launches per method; K1 and K2 per launch shape.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
@@ -344,8 +378,10 @@ adaptive sequence, the adaptive stream, the SAFA pairs, the SAFA train
 steps, the evaluation, the bench, the sweep, the triplet benchmark, the
 counted extraction of the ingest, step 22's trainer, evaluation and gate
 runs, step 23's calibration and gate loads, step 24's VFIMamba train steps
-and trainer runs and the exported program's runs; K2: the RIFE and the SAFA
-train steps, step 22's trainer runs and step 24's VFIMamba steps)
+and trainer runs, the exported program's runs, step 25's compared
+data-parallel steps and the blind study's CLIs; K2: the RIFE and the SAFA
+train steps, step 22's trainer runs, step 24's VFIMamba steps and step 25's
+compared steps)
 and the device time, bound, plain-twin and grid_sample time of exactly
 those launches (a stream's and the bench's launches at their shapes' times
 from steps 7 and 9). The last line is {"ok": true, "device": {...}}.
@@ -360,6 +396,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -2205,7 +2242,7 @@ def train_span_phase(kw) -> None:
 
 # the evaluation phase: the evaluation library (vfisr_tpu_torch/evaluation/)
 # on EVAL_FRAMES frames of step 4's 1080p scene, the odd ones interpolated
-EVAL_FRAMES = 7
+EVAL_FRAMES = 5  # cut from 7 to make room for step 25
 # Farneback at 1080p: 4 pyramid levels (3 halvings; the smallest side stays
 # >= 16 px) x 3 warps per level (one per matrix update)
 K1_PER_FLOW = 12
@@ -2266,7 +2303,7 @@ def evaluation_phase(kw) -> dict:
     require_whole_c(kw, "evaluation", recorded)
     t0 = _phase("evaluation_run", t0)
     res = bench.to_dict()
-    print(f"evaluation quality (QualityEvaluator.evaluate, {EVAL_FRAMES} frames, 3 interpolated "
+    print(f"evaluation quality (QualityEvaluator.evaluate, {EVAL_FRAMES} frames, {EVAL_FRAMES // 2} interpolated "
           f"by get_model('adaptive')): {quality.to_dict()}, psnr per frame "
           f"{quality.psnr_per_frame}, lpips per frame {quality.lpips_per_frame}")
     print(f"evaluation flolpips {flolpips}, temporal {temporal}")
@@ -2417,6 +2454,9 @@ def _checking(kw, checks: list):
     return checking
 
 
+BENCH_CHECK_PAIRS = 10  # pairs of the bench's checked run (its counted run keeps the bench's 50)
+
+
 def bench_phase(kw, per_pair: dict) -> dict:
     """Step 18 of the module docstring. Returns K1's numbers over the
     bench's counted launches, timed per pair in step 7."""
@@ -2429,14 +2469,15 @@ def bench_phase(kw, per_pair: dict) -> dict:
     checks, real_warp = [], kw.warp_windowed
     kw.warp_windowed = _checking(kw, checks)
     try:
-        print("bench check run (every K1 launch against its twin and its origins; its times "
-              "include the twins):")
-        bench.measure()
+        print(f"bench check run ({BENCH_CHECK_PAIRS} pairs after the warm-up; every K1 launch "
+              "against its twin and its origins; its times include the twins):")
+        bench.measure(pairs=BENCH_CHECK_PAIRS)
     finally:
         kw.warp_windowed = real_warp
     err, tol, differ = (torch.stack(v) for v in zip(*checks))
     max_err = err.max().item()
-    require(len(checks) == LAUNCHES_PER_PAIR * pairs, f"{len(checks)} K1 launches checked")
+    require(len(checks) == LAUNCHES_PER_PAIR * (bench.WARMUP + BENCH_CHECK_PAIRS),
+            f"{len(checks)} K1 launches checked")
     require(bool((err <= tol).all()) and not bool(differ.any()),
             f"bench: K1 vs twin and origins at every launch (max_abs_err {max_err:.3e})")
     print(f"bench check run: {len(checks)} K1 launches, each within its tolerance of the twin "
@@ -2467,7 +2508,7 @@ def bench_phase(kw, per_pair: dict) -> dict:
 # tier).
 SWEEP_PANS = (0, 2, 16, 2, 2, 0, 8, 2, 2, 2)
 SWEEP_CLIP = "chip_smoke"
-SWEEP_COMPARE_KF = 5  # keyframes of the batched vs per-frame comparison
+SWEEP_COMPARE_KF = 3  # keyframes of the batched vs per-frame comparison (cut from 5 for step 25)
 # the reference's tolerances of its batched path against its per-frame loop
 # (tests/test_device_sweep.py): (PSNR dB, SSIM)
 SWEEP_COMPARE = {"control": (0.35, 0.01), "degraded": (0.35, 0.01),
@@ -2794,7 +2835,7 @@ def sweep_phase(kw, card: str) -> dict:
 # 1080p frames of the adaptive phase's scene panning TRIPLET_PAN px per frame,
 # its ground truth rendered at 2560x1440 (the clip's 1.3333 scale) at t =
 # 0.25/0.5/0.75
-TRIPLET_FRAMES, TRIPLET_PAN, TRIPLET_SCALE = 5, 4.0, 1.3333
+TRIPLET_FRAMES, TRIPLET_PAN, TRIPLET_SCALE = 3, 4.0, 1.3333  # frames cut from 5 for step 25
 TRIPLET_GT_HW = (1440, 2560)  # the models give 1439x2559 at 1.3333; the evaluator resizes
 TRIPLET_MODELS = "lanczos,rife,adaptive,safa"
 
@@ -2911,7 +2952,8 @@ INGEST_OUT = (1920, 1080)  # the intervals' frames and the triplets' input (w, h
 INGEST_IN_FPS = 30
 INGEST_CLIP = "chip_ingest"
 INGEST_MODELS = "lanczos,rife"
-INGEST_STAGE_FRAMES = 8  # frames per stage timing
+INGEST_STAGE_FRAMES = 4  # frames per stage timing (cut from 8 for step 25)
+INGEST_FULL_KEYFRAMES = 3  # run_full_benchmark --max-frames (all 6, cut for step 25)
 
 
 def ingest_layout(xi) -> tuple:
@@ -3231,7 +3273,8 @@ def ingest_phase(kw, card: str) -> tuple:
         # 6. the full benchmark over the registered clip, then the analyses
         full = root / "full"
         _, full_s = run_cli(["vfisr_tpu_torch.run_full_benchmark", "--data-dir", data,
-                             "--output-dir", full], "run_full_benchmark", timeout=600)
+                             "--output-dir", full, "--max-frames", str(INGEST_FULL_KEYFRAMES)],
+                            "run_full_benchmark", timeout=600)
         results = json.loads((full / "experiment_results.json").read_text())
         log = (full / "experiment_log.txt").read_text()
         per = {}
@@ -3300,12 +3343,13 @@ def ingest_phase(kw, card: str) -> tuple:
 # the trainer's --data, the host scene generators through --data-source
 # host, then the held-out evaluation and gate CLIs, all in this process
 DATA_BATCH, DATA_CROP, DATA_SEED = 16, 192, 0
-DATA_STEPS = 3  # --data steps of full-width RIFE
+DATA_STEPS = 2  # --data steps of full-width RIFE (cut from 3 for step 25)
 HOST_STEPS = (("rife", 4), ("span_x4", 2), ("safa", 2))  # --data-source host
 DATA_ENTRIES = 27
 K1_PER_DATA_STEP = {"rife": K1_PER_STEP - 2, "safa": K1_PER_SAFA_STEP - 2}  # no data warps
 K2_PER_DATA_STEP = {"rife": K2_PER_STEP, "safa": K2_PER_SAFA_STEP}
 GATE_SAMPLES = 8
+EVAL_CLI_SAMPLES = 8  # the eval CLIs' samples (their defaults 16 and 12, cut for step 25)
 
 
 def _checking_grad(kw, checks: list, firsts: dict, counts: dict, tag: dict):
@@ -3505,16 +3549,18 @@ def data_phase(kw, card: str, processed: Path) -> tuple:
         # 3. the held-out evaluations at their defaults, on the card
         buf = io.StringIO()
         with cl.redirect_stdout(buf):
-            vfi_rows, k1, _ = counted("eval_vfi_quality", lambda: eval_vfi_quality.main([]))
+            vfi_rows, k1, _ = counted("eval_vfi_quality", lambda: eval_vfi_quality.main(
+                ["--samples", str(EVAL_CLI_SAMPLES)]))
             sr_rows, k1_sr, k2_sr = counted("eval_sr_quality", lambda: {
-                scene: eval_sr_quality.main(["--scene", scene]) for scene in ("smooth", "detail")})
+                scene: eval_sr_quality.main(["--scene", scene, "--samples", str(EVAL_CLI_SAMPLES)])
+                for scene in ("smooth", "detail")})
         print(buf.getvalue().rstrip())
         rows = [*vfi_rows.values(), *(v for r in sr_rows.values() for v in r.values())]
         require(set(vfi_rows) == {"rife", "lanczos", "optical_flow"} and k1 > 0
                 and all(len(r) == 4 for r in sr_rows.values()) and k1_sr == k2_sr == 0
                 and all(math.isfinite(v) for row in rows for v in row),
                 f"held-out PSNR and SSIM finite: {vfi_rows} {sr_rows}")
-        print(f"data eval_vfi_quality (defaults: 16 samples at 256^2; K1 {k1} launches, checked) "
+        print(f"data eval_vfi_quality ({EVAL_CLI_SAMPLES} samples at 256^2; K1 {k1} launches, checked) "
               f"and eval_sr_quality (defaults, smooth and detail scenes): every PSNR and SSIM "
               f"finite; {card}")
         t0 = _phase("data_eval", t0)
@@ -3560,14 +3606,14 @@ def data_phase(kw, card: str, processed: Path) -> tuple:
 
 # the calibration phase: the clip renderer and the router and LPIPS
 # calibrations (make_synthetic_clip, calibrate_router, calibrate_lpips) on
-# the card, at full width, cut in counts only: two 2 s clips at 1920x1080,
+# the card, at full width, cut in counts only: two 1 s clips at 1920x1080,
 # 60 fps (the hard and routing presets at held-out seeds); the router's rows
 # at the default quality 2560x1440 with full-width RIFE and VFIMamba; LPIPS
 # at its defaults
-CALIB_SECONDS = 2.0
+CALIB_SECONDS = 1.0  # cut from 2 s for step 25
 CALIB_CLIPS = (("hard", 431), ("routing", 432))
-CALIB_ROUTER_ARGS = ["--pairs", "6", "--stride", "4", "--native-pairs", "6", "--samples", "8",
-                     "--scene-worlds", "2", "--scene-seconds", "2"]
+CALIB_ROUTER_ARGS = ["--pairs", "4", "--stride", "4", "--native-pairs", "4", "--samples", "4",
+                     "--scene-worlds", "2", "--scene-seconds", "1"]
 CALIB_HUD = (slice(42, 198), slice(42, 298))  # inside the minimap box, on whole chroma blocks
 # the JAX package's pins for a calibration (tests/test_lpips_calibration.py):
 # held-out 2AFC accuracy, the mean and the least within-family Spearman
@@ -3765,7 +3811,7 @@ def calibration_phase(kw, card: str) -> dict:
 # vfisr_tpu_torch.compile_aot --model rife --precision bf16 at 1080p, one
 # pair, the flagship's timesteps
 MAMBA_MODELS = ("vfimamba", "vfimamba_s")
-MAMBA_TRAIN_STEPS = 3  # timed, after 1 warm-up step
+MAMBA_TRAIN_STEPS = 2  # timed, after 1 warm-up step (cut from 3 for step 25)
 # K1 per VFIMamba train step: 2 for the data (device_synthetic_batch), then
 # 6 in the forward, two per refinement level (1/4, 1/2) and two at full
 # resolution (per-block remat recomputes the BiMambaBlocks, not the warps);
@@ -4140,6 +4186,438 @@ def export_phase(kw, card: str, rife_npz: Path) -> dict:
     return path_numbers(k1_run, max_err, tot, runs)
 
 
+# step 25: scale-out and the blind study. (a) the data-parallel RIFE step at
+# the trainer's defaults (full width, weights/rife.npz, batch 16, crop 192,
+# f32 with TF32 off, deterministic cuDNN) over NCCL on every visible card
+# (world 1 on a one-card machine: this process) and over a gloo group of
+# DP_GLOO_RANKS spawned ranks on one card, each held against the one-process
+# step on the whole batch; (b) H-sharded SPAN x2 (weights/span_x2.npz) on a
+# 1920x1080 frame over the gloo group against the unsharded call; (c) the
+# blind study's CLIs in process on step 21's clip
+DP_STEPS = 2  # compared steps: the first at lr 0 (warmup), the second at TRAIN_LR
+DP_TIMED = 5  # timed steps after the compared ones
+DP_GLOO_RANKS = 2
+DP_TOL = 1e-5  # loss, the first step's averaged gradients and every parameter, relative
+SHARD_TOL = 1e-5  # H-sharded SPAN against the unsharded call, max abs
+SCALEOUT_TIMEOUT = 300.0  # seconds for a spawned group
+STUDY_INTERVAL = 2  # step 21's 8 px pan interval
+STUDY_KEYFRAMES = 3  # benchmark_proper/generate_clips --max-frames
+STUDY_FRAMES = STUDY_KEYFRAMES + 3 * (STUDY_KEYFRAMES - 1)  # 3 between each keyframe pair
+STUDY_METHODS = ("control", "degraded", "lanczos", "rife_lanczos", "adaptive_vfi")
+# the metadata's keyframe PSNR (dB; float64 MSE) and SSIM (f32 sums) against the same
+# frames scored on the CPU
+STUDY_PSNR_TOL, STUDY_SSIM_TOL = 1e-6, 1e-5
+
+
+def _counting_acc() -> dict:
+    return dict(checks1=[], checks2=[], firsts1={}, counts1={}, firsts2={}, counts2={}, tag={})
+
+
+def _acc_run(kw, acc: dict, label: str, fn):
+    """fn() through ``_counted_run``: every K1 and K2 launch held against its
+    twin as it goes, counted by shape into acc."""
+    return _counted_run(kw, acc["checks1"], acc["checks2"], acc["firsts1"], acc["counts1"],
+                        acc["firsts2"], acc["counts2"], acc["tag"], label, fn)
+
+
+def _blockwise_step(module, state, blocks: int):
+    """The data-parallel step's arithmetic in one process: the whole batch
+    in ``blocks`` equal blocks, as that many ranks hold it; each block's
+    loss and gradients (remat, as ``make_train_step``) summed in block
+    order and divided by ``blocks``, as the ranks' all-reduce averages
+    them; then the clip and AdamW."""
+    from torch.utils.checkpoint import checkpoint
+
+    from vfisr_tpu_torch.train.train import apply_gradients, vfi_loss
+
+    params = [p for p in module.parameters() if p.requires_grad]
+
+    def forward(img0, img1, t, gt):
+        return vfi_loss(module(img0, img1, t)[0], gt)
+
+    def step(batch: dict) -> torch.Tensor:
+        for p in params:
+            p.grad = None
+        total = 0.0
+        for k in range(blocks):
+            b = {key: v.chunk(blocks)[k] for key, v in batch.items()}
+            loss = checkpoint(forward, b["img0"], b["img1"], b["t"], b["gt"], use_reentrant=False)
+            loss.backward()
+            total = total + loss.detach()
+        for p in params:
+            if p.grad is not None:
+                p.grad.div_(blocks)
+        apply_gradients(state, params)
+        return total / blocks
+
+    return step
+
+
+def _dp_run(kw, batch: dict, mesh, label: str, acc: dict, blocks: int = 1) -> dict:
+    """Full-width RIFE from weights/rife.npz through DP_STEPS compared steps,
+    its launches checked and counted into acc: the steps' losses, the first
+    step's gradients (averaged over the mesh and clipped), the parameters
+    after them (CPU) and ``time``, which times DP_TIMED more steps (CUDA
+    events, after one) and returns ms per step. Without a mesh, the
+    one-process step on the whole batch (with blocks > 1,
+    ``_blockwise_step``'s)."""
+    from vfisr_tpu_torch.models.sota.rife import RIFEModel
+    from vfisr_tpu_torch.parallel.mesh import shard_batch
+    from vfisr_tpu_torch.train.train import create_train_state, make_train_step
+
+    model = RIFEModel(device="cuda")
+    model.load(weights_path=str(ROOT / "weights" / "rife.npz"))
+    module = model.trainable()
+    state = create_train_state(module.parameters(), learning_rate=TRAIN_LR,
+                               total_steps=DP_STEPS + 1)
+    if blocks > 1:
+        step = _blockwise_step(module, state, blocks)
+    else:
+        step = make_train_step(module, state, mesh=mesh)  # remat on, as the trainer
+    block = batch if mesh is None else shard_batch(mesh, batch)
+
+    def compared():
+        losses, grads = [], None
+        for _ in range(DP_STEPS):
+            losses.append(step(block).item())
+            if grads is None:
+                grads = {n: p.grad.detach().cpu() for n, p in module.named_parameters()}
+        return losses, grads
+
+    def time_steps() -> list:
+        step(block)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(DP_TIMED):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(block)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return ms
+
+    (losses, grads), k1, k2 = _acc_run(kw, acc, label, compared)
+    params = {n: p.detach().cpu() for n, p in module.named_parameters()}
+    return dict(losses=losses, grads=grads, params=params, k1=k1, k2=k2,
+                batch=block["img0"].shape[0], time=time_steps)
+
+
+def _span_sharded(mesh) -> dict:
+    """SPAN x2 on step 4's first 1080p frame over the mesh's 'spatial' axis
+    and unsharded (CUDA events, 3 runs after one; the unsharded call timed
+    on rank 0 alone, the other ranks waiting, as they share its card)."""
+    import torch.distributed as dist
+
+    from vfisr_tpu_torch.models.sota.span import SPANModel
+    from vfisr_tpu_torch.parallel.mesh import receptive_radius, shard_batch, spatial_apply
+
+    span = SPANModel(scale=2, device="cuda")
+    span.load(weights_path=str(ROOT / "weights" / "span_x2.npz"))
+    x = game_frame(0, torch.device("cuda")).float()[None] / 255.0
+    rows = shard_batch(mesh, {"x": x}, h_sharded=True)["x"]
+    with torch.no_grad():
+        sharded = spatial_apply(span.module, rows, mesh)
+        sharded_ms = time_ms(lambda: spatial_apply(span.module, rows, mesh), 3, warmup=0)
+        unsharded = span.module(x)
+        dist.barrier()
+        unsharded_ms = time_ms(lambda: span.module(x), 3, warmup=0) if dist.get_rank() == 0 \
+            else None
+        dist.barrier()
+    return dict(err=(sharded - unsharded).abs().max().item(), shape=tuple(sharded.shape),
+                rows=tuple(rows.shape), halo=receptive_radius(span.module), sharded_ms=sharded_ms,
+                unsharded_ms=unsharded_ms)
+
+
+def _to(tree, device):
+    return {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in tree.items()}
+
+
+def _scaleout_rank(rank: int, world: int, batch_path: str, span: bool) -> dict:
+    """One spawned rank of step 25: the data-parallel steps over all ranks,
+    and with ``span`` SPAN over a data 1 x spatial world mesh. Returns CPU
+    data: the steps' numbers, the launches' errors (each within its
+    tolerance), counts and each launch shape's first inputs."""
+    global ORIGIN_TABLE
+    from vfisr_tpu_torch.ops.cuda import warp as kw
+    from vfisr_tpu_torch.parallel.mesh import make_mesh
+
+    kw.build()
+    ORIGIN_TABLE = kw.window_origins
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    batch = {k: v.cuda() for k, v in torch.load(batch_path).items()}
+    acc = _counting_acc()
+    backend = torch.distributed.get_backend()
+    out = _dp_run(kw, batch, make_mesh(world), f"dp {backend} rank {rank}/{world}", acc)
+    del out["time"]
+    if span:
+        out["span"] = _span_sharded(make_mesh(world, spatial=world))
+    out["err1"] = _require_checks(acc["checks1"], f"dp {backend} rank {rank}")
+    out["err2"] = _require_grad_checks(acc["checks2"], f"dp {backend} rank {rank}")
+    for f in ("firsts1", "firsts2"):
+        out[f] = {k: _to(a, "cpu") for k, a in acc[f].items()}
+    out["counts1"], out["counts2"] = acc["counts1"], acc["counts2"]
+    return out
+
+
+def _params_err(got: dict, ref: dict) -> float:
+    """The largest |got - ref| of any tensor over max(1, its largest |ref|)."""
+    return max((got[n] - p).abs().max().item() / max(1.0, p.abs().max().item())
+               for n, p in ref.items())
+
+
+def _grads_err(got: dict, ref: dict) -> float:
+    """The largest |got - ref| of any tensor over its largest |ref|."""
+    return max((got[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+               for n, g in ref.items())
+
+
+def scaleout_phase(kw, card: str) -> tuple:
+    """Step 25 (a) and (b) of the module docstring. Returns K1's and K2's
+    numbers over every compared step's launches."""
+    import torch.distributed as dist
+
+    from vfisr_tpu_torch.parallel.launch import run
+    from vfisr_tpu_torch.parallel.mesh import make_mesh
+    from vfisr_tpu_torch.train.device_data import device_synthetic_batch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    acc = _counting_acc()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_scaleout_")
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        batch = device_synthetic_batch(gen, TRAIN_BATCH, TRAIN_CROP, TRAIN_DETAIL)
+        batch_path = str(Path(tmp.name) / "batch.pt")
+        torch.save({k: v.cpu() for k, v in batch.items()}, batch_path)
+        # the gloo ranks start (seconds of imports and set-up each) while this
+        # process runs its compared steps; every timing waits for them
+        gloo, failed = [], []
+
+        def gloo_group():
+            try:
+                gloo.extend(run(_scaleout_rank, DP_GLOO_RANKS, batch_path, True, backend="gloo",
+                                device="cuda", timeout=SCALEOUT_TIMEOUT, store_dir=tmp.name))
+            except Exception as e:  # raised again below, in this thread
+                failed.append(e)
+
+        thread = threading.Thread(target=gloo_group)
+        thread.start()
+        try:
+            one = _dp_run(kw, batch, None, "dp one process", acc)
+            blockwise = _dp_run(kw, batch, None, "dp one process, blockwise", acc,
+                                blocks=DP_GLOO_RANKS)
+            world = torch.cuda.device_count()
+            if world == 1:  # this process is the one rank
+                dist.init_process_group("nccl", init_method=f"file://{tmp.name}/nccl_store",
+                                        rank=0, world_size=1)
+                nccl_acc = _counting_acc()
+                nccl = [_dp_run(kw, batch, make_mesh(1), "dp nccl rank 0/1", nccl_acc)]
+                nccl[0]["err1"] = _require_checks(nccl_acc["checks1"], "dp nccl rank 0")
+                nccl[0]["err2"] = _require_grad_checks(nccl_acc["checks2"], "dp nccl rank 0")
+                for f in ("firsts1", "firsts2", "counts1", "counts2"):
+                    nccl[0][f] = nccl_acc[f]
+            else:
+                nccl = run(_scaleout_rank, world, batch_path, False, backend="nccl",
+                           device="cuda", timeout=SCALEOUT_TIMEOUT, store_dir=tmp.name)
+        finally:
+            thread.join()
+        if failed:
+            raise failed[0]
+        t0 = _phase("scaleout_runs", t0)
+        try:
+            one["ms"] = one["time"]()
+            nccl[0]["ms"] = nccl[0]["time"]() if world == 1 else None
+        finally:
+            if world == 1:
+                dist.destroy_process_group()
+        t0 = _phase("scaleout_timing", t0)
+    finally:
+        tmp.cleanup()
+        torch.backends.cudnn.deterministic = False
+
+    # each group against the one-process step on the whole batch: NCCL's
+    # ranks hold whole-batch blocks (world 1), gloo's half-batch ones, whose
+    # f32 convs take other algorithms than at batch 16 and whose bf16 warp
+    # windows round those last-bit differences to bf16 steps: gloo's ranks
+    # are held to the blockwise step (the same blocks in one process), and
+    # their distance from the whole-batch step is printed beside it
+    def errors(res, ref):
+        return (max(abs(a - b) / abs(b) for a, b in zip(res["losses"], ref["losses"])),
+                _grads_err(res["grads"], ref["grads"]), _params_err(res["params"], ref["params"]))
+
+    print(f"scaleout dp blockwise ({DP_GLOO_RANKS} blocks) against the whole-batch step: loss, "
+          f"first step's gradients, parameters after {DP_STEPS} steps "
+          + ", ".join(f"{e:.3e}" for e in errors(blockwise, one)))
+    for name, group, ref, what in ((f"NCCL world {world}", nccl, one, "whole-batch"),
+                                   (f"gloo {DP_GLOO_RANKS} ranks", gloo, blockwise, "blockwise")):
+        for r, res in enumerate(group):
+            loss_err, grad_err, par_err = errors(res, ref)
+            print(f"scaleout dp {name} rank {r} (batch {res['batch']} of {TRAIN_BATCH}) against "
+                  f"the one-process {what} step: losses "
+                  f"{', '.join(f'{v:.9f}' for v in res['losses'])} vs "
+                  f"{', '.join(f'{v:.9f}' for v in ref['losses'])} (max rel {loss_err:.3e}), "
+                  f"first step's gradients {grad_err:.3e}, parameters after {DP_STEPS} steps "
+                  f"{par_err:.3e} (tolerance {DP_TOL}); against the whole-batch step "
+                  + ", ".join(f"{e:.3e}" for e in errors(res, one))
+                  + f"; K1 {res['k1']}, K2 {res['k2']} launches, each checked (max_abs_err "
+                  f"{res['err1']:.3e} / {res['err2']:.3e})")
+            require(loss_err <= DP_TOL and grad_err <= DP_TOL and par_err <= DP_TOL,
+                    f"dp {name} rank {r} against the one-process {what} step")
+            require(all(torch.equal(res["params"][n], group[0]["params"][n]) for n in one["params"]),
+                    f"dp {name}: rank {r}'s parameters equal rank 0's")
+    base = sum(one["ms"]) / len(one["ms"])
+    for name, v in (("one process", one["ms"]), (f"NCCL world {world}", nccl[0]["ms"])):
+        if v is None:
+            print(f"scaleout dp ms/step {name}: not measured (spawned ranks)")
+            continue
+        mean = sum(v) / len(v)
+        print(f"scaleout dp ms/step {name}: {mean:.3f} ({', '.join(f'{x:.3f}' for x in v)}; "
+              f"{mean - base:+.3f} against one process); {card}")
+    s = gloo[0]["span"]
+    require(all(g["span"]["err"] <= SHARD_TOL for g in gloo),
+            f"H-sharded SPAN against unsharded: {[g['span']['err'] for g in gloo]}")
+    print(f"scaleout H-sharded SPAN x2 1920x1080 -> {s['shape'][1:3]} over {DP_GLOO_RANKS} gloo "
+          f"ranks ({s['rows']} rows each + a {s['halo']}-row halo): max abs diff "
+          f"{max(g['span']['err'] for g in gloo):.3e} against the unsharded call (tolerance "
+          f"{SHARD_TOL}); ms sharded {s['sharded_ms']:.3f}, unsharded {s['unsharded_ms']:.3f}; "
+          f"{card}")
+
+    # every compared step's launches: their errors and, per shape, the kernels alone
+    for res in [*nccl, *gloo]:
+        for g in ("1", "2"):
+            acc[f"firsts{g}"].update({k: _to(a, "cuda") for k, a in res[f"firsts{g}"].items()
+                                      if k not in acc[f"firsts{g}"]})
+            for k, n in res[f"counts{g}"].items():
+                acc[f"counts{g}"][k] = acc[f"counts{g}"].get(k, 0) + n
+    err1 = max(_require_checks(acc["checks1"], "dp one process"), *(r["err1"] for r in nccl + gloo))
+    err2 = max(_require_grad_checks(acc["checks2"], "dp one process"),
+               *(r["err2"] for r in nccl + gloo))
+    total1 = _kernel_by_shape(kw, "scaleout", "phase", acc["firsts1"], acc["counts1"])
+    total2 = _kernel_by_shape(kw, "scaleout", "phase", acc["firsts2"], acc["counts2"], grad=True)
+    _phase("scaleout_kernel_timing", t0)
+    return (path_numbers(sum(acc["counts1"].values()), err1, total1, 1),
+            path_numbers(sum(acc["counts2"].values()), err2, total2, 1))
+
+
+def blind_study_phase(kw, card: str, data_dir: Path) -> dict:
+    """Step 25 (c) of the module docstring. Returns K1's numbers over the
+    CLIs' launches."""
+    import contextlib as cl
+    import io
+
+    from vfisr_tpu_torch import prepare_blind_study as pbs
+    from vfisr_tpu_torch.core.color import rgb_to_gray
+    from vfisr_tpu_torch.data import video_io
+    from vfisr_tpu_torch.data.extract_intervals import load_interval
+    from vfisr_tpu_torch.evaluation.metrics import calc_psnr, calc_ssim
+    from vfisr_tpu_torch.gui import benchmark_proper as bp, generate_clips as gc
+
+    t0 = time.perf_counter()
+    acc = _counting_acc()
+    per = {}
+
+    def timed(fn):
+        def wrapper(method, *args, **kw_):
+            torch.cuda.synchronize()
+            k1, start = kw.launches, time.perf_counter()
+            res = fn(method, *args, **kw_)
+            torch.cuda.synchronize()
+            per[(fn.__module__.rsplit(".", 1)[1], method)] = (
+                (time.perf_counter() - start) * 1e3, kw.launches - k1)
+            return res
+        return wrapper
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_study_")
+    root = Path(tmp.name)
+    real = bp.run_method, gc.generate_method
+    bp.run_method, gc.generate_method = timed(bp.run_method), timed(gc.generate_method)
+    try:
+        common = ["--clip", INGEST_CLIP, "--interval", str(STUDY_INTERVAL), "--data-dir",
+                  str(data_dir), "--max-frames", str(STUDY_KEYFRAMES)]
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            _acc_run(kw, acc, "benchmark_proper", lambda: bp.main(
+                [*common, "--output-dir", str(root / "bench")]))
+            _acc_run(kw, acc, "generate_clips", lambda: gc.main(
+                [*common, "--preset", "sota", "--output-dir", str(root / "sota")]))
+            _acc_run(kw, acc, "prepare_blind_study", lambda: pbs.main(
+                ["--benchmark-dir", str(root / "bench"), "--output-dir", str(root / "study"),
+                 "--seed", "0"]))
+        t0 = _phase("study_clis", t0)
+
+        # every video written, with the keyframes and 3 frames between each pair
+        suffix = video_io.writable_suffix()
+        meta = json.loads((root / "bench" / "clips_metadata.json").read_text())["clips"][INGEST_CLIP]
+        videos = {m: Path(p) for m, p in meta["videos"].items()}
+        require(list(videos) == list(STUDY_METHODS) and all(
+            p == root / "bench" / f"{m}{suffix}" for m, p in videos.items()),
+            f"clips_metadata.json's videos: {meta['videos']}")
+        videos["sota rife_lanczos"] = root / "sota" / f"rife_lanczos{suffix}"
+        for name, p in videos.items():
+            n = video_io.probe_video(str(p)).frame_count
+            require(n == STUDY_FRAMES, f"{name}: {n} frames, not {STUDY_FRAMES}")
+        key = json.loads((root / "study" / "answer_key.json").read_text())
+        require(sorted(key) == [f"pair_{i:02d}{suffix}" for i in range(len(STUDY_METHODS) - 1)]
+                and all(v["frames"] == STUDY_FRAMES for v in key.values()),
+                f"answer key: {key}")
+        pair = video_io.probe_video(str(root / "study" / f"pair_00{suffix}"))
+        require((pair.frame_count, pair.width, pair.height) == (STUDY_FRAMES, 2 * 2560, 1440),
+                f"pair_00's frames and size: {pair}")
+        print(f"study videos: {', '.join(f'{p.name}' for p in videos.values())} and "
+              f"{len(key)} pairs ({pair.width}x{pair.height}), {STUDY_FRAMES} frames each "
+              f"({STUDY_KEYFRAMES} keyframes, 3 between each pair), written as {suffix} "
+              f"(ffmpeg on PATH: {video_io.FFMPEG})")
+
+        # the metadata's PSNR and SSIM against the same frames scored on the CPU
+        kfs = load_interval(INGEST_CLIP, STUDY_INTERVAL, str(data_dir),
+                            max_frames=STUDY_KEYFRAMES)[0]
+        for method, interp in (("degraded", "cubic"), ("lanczos", "lanczos4")):
+            psnrs, ssims = [], []
+            for f in kfs:
+                src = torch.from_numpy(f).cuda()
+                out = bp.resize_u8(bp.resize_u8(src, bp.DEGRADE, "area"), (2560, 1440), interp).cpu()
+                ref = bp.resize_u8(src, (2560, 1440), "lanczos4").cpu()
+                psnrs.append(calc_psnr(out, ref, "cpu"))
+                ssims.append(calc_ssim(rgb_to_gray(out), rgb_to_gray(ref), "cpu"))
+            m = meta["metrics"][method]
+            require(abs(m["psnr"] - float(np.mean(psnrs))) <= STUDY_PSNR_TOL
+                    and abs(m["ssim"] - float(np.mean(ssims))) <= STUDY_SSIM_TOL,
+                    f"{method}: card psnr/ssim {m['psnr']}/{m['ssim']} vs CPU "
+                    f"{np.mean(psnrs)}/{np.mean(ssims)}")
+            print(f"study {method}: psnr {m['psnr']:.6f} dB, ssim {m['ssim']:.6f} (the same "
+                  f"frames scored on the CPU: {np.mean(psnrs):.6f}, {np.mean(ssims):.6f})")
+
+        # extract_clip's cut of a Y4M against the source's frames (a Y4M
+        # lanczos video: run_method writes the container its path names)
+        y4m, cut = root / "lanczos.y4m", root / "cut.y4m"
+        fps = 120.0
+        _acc_run(kw, acc, "run_method y4m", lambda: bp.run_method(
+            "lanczos", kfs, str(y4m), 2560, 1440, fps))
+        require(bp.extract_clip(y4m, None, 2 / fps, 4 / fps, cut), "extract_clip")
+        with video_io.VideoReader(str(y4m)) as a, video_io.VideoReader(str(cut)) as b:
+            src = [a.read_i420() for _ in range(6)]
+            require(b.frame_count == 4 and all(np.array_equal(b.read_i420(), src[2 + i])
+                                               for i in range(4)), "the Y4M cut's frames")
+        print(f"study extract_clip: frames 2-5 of lanczos.y4m cut by copying, equal to the "
+              f"source's; get_full_video_duration {bp.get_full_video_duration(cut):.6f} s")
+    finally:
+        bp.run_method, gc.generate_method = real
+        tmp.cleanup()
+    for (cli, method), (ms, k1) in per.items():
+        print(f"study {cli} {method} at 2560x1440 ({STUDY_KEYFRAMES} keyframes, {STUDY_FRAMES} "
+              f"frames): {ms:.3f} ms (host clock, synchronized), K1 {k1} launches; {card}")
+    err1 = _require_checks(acc["checks1"], "blind study")
+    require(not acc["checks2"], "no K2 launch in the blind study")
+    total1 = _kernel_by_shape(kw, "study", "run", acc["firsts1"], acc["counts1"])
+    _phase("study_kernel_timing", t0)
+    return path_numbers(sum(acc["counts1"].values()), err1, total1, 1)
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4328,11 +4806,13 @@ def main() -> int:
     k1_ingest, ingest_tmp = ingest_phase(kw, card)
     try:
         k1_data, k2_data = data_phase(kw, card, Path(ingest_tmp.name) / "processed")
+        k1_calibration = calibration_phase(kw, card)
+        k1_mamba, k2_mamba = mamba_train_phase(kw, card)
+        k1_export = export_phase(kw, card, rife_npz)
+        k1_scaleout, k2_scaleout = scaleout_phase(kw, card)
+        k1_study = blind_study_phase(kw, card, Path(ingest_tmp.name) / "data")
     finally:
         ingest_tmp.cleanup()
-    k1_calibration = calibration_phase(kw, card)
-    k1_mamba, k2_mamba = mamba_train_phase(kw, card)
-    k1_export = export_phase(kw, card, rife_npz)
     print(f"wall {time.perf_counter() - wall0:.2f} s")
     # each kernel's launches counted on every path that runs it, and the
     # device time of exactly those launches
@@ -4340,8 +4820,10 @@ def main() -> int:
         kernel_entry("warp_windowed", [k1_flagship, k1_stream_flagship, k1_train, k1_adaptive,
                                        k1_stream_adaptive, k1_safa, k1_safa_train, k1_evaluation,
                                        k1_bench, k1_sweep, k1_triplet, k1_ingest, k1_data,
-                                       k1_calibration, k1_mamba, k1_export]),
-        kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train, k2_data, k2_mamba])]}))
+                                       k1_calibration, k1_mamba, k1_export, k1_scaleout,
+                                       k1_study]),
+        kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train, k2_data, k2_mamba,
+                                            k2_scaleout])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

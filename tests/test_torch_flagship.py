@@ -104,15 +104,19 @@ def test_history_ring_shifts():
 
 def test_port_imports_no_jax_cv2_or_reference():
     """Importing every module of the port (the trainer, its CLI, the clip
-    renderer and the calibrations included), and chip_smoke.py, pulls in no
-    jax, no cv2 and nothing of vfisr_tpu."""
+    renderer, the calibrations, the scale-out and the blind study's CLIs
+    included), and chip_smoke.py, pulls in no jax, no cv2 and nothing of
+    vfisr_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vfisr_tpu_torch\n"
         "for m in pkgutil.walk_packages(vfisr_tpu_torch.__path__, 'vfisr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('train', 'train.train', 'train.device_data', 'train.__main__',\n"
-        "          'make_synthetic_clip', 'calibrate_router', 'calibrate_lpips'):\n"
+        "          'make_synthetic_clip', 'calibrate_router', 'calibrate_lpips',\n"
+        "          'parallel.mesh', 'parallel.launch', 'parallel.dryrun',\n"
+        "          'gui.benchmark_proper', 'gui.benchmark_all', 'gui.generate_clips',\n"
+        "          'prepare_blind_study'):\n"
         "    importlib.import_module('vfisr_tpu_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'vfisr_tpu', 'flax'))\n"

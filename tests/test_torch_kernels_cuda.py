@@ -509,3 +509,49 @@ def test_selective_scan_backward_on_the_card(length):
     for name, a, b in zip(("y", "dt", "A", "u", "B", "C"), (y, *got), (y_ref, *want)):
         err = (a - b).abs().max().item() / b.abs().max().item()
         assert err <= 1e-4, (name, err)
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_world_1_nccl(tmp_path, monkeypatch):
+    """The dry run's RIFE step with a mesh over a world-1 NCCL group: its K1
+    and K2 launches counted, loss and every parameter's gradient and value
+    equal to the one-process step's from the same start (1e-5 relative;
+    deterministic cuDNN)."""
+    _needs_card()
+    import torch.distributed as dist
+
+    from vfisr_tpu_torch.models.sota.rife import IFNet, RIFEConfig
+    from vfisr_tpu_torch.parallel.dryrun import DRYRUN_RIFE
+    from vfisr_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from vfisr_tpu_torch.train.train import create_train_state, make_train_step
+
+    gen = torch.Generator().manual_seed(3)
+    batch = {k: torch.rand(4, 64, 64, 3, generator=gen).cuda() for k in ("img0", "img1", "gt")}
+    batch["t"] = torch.full((4,), 0.5, device="cuda")
+    torch.manual_seed(0)
+    start = IFNet(RIFEConfig(**DRYRUN_RIFE)).state_dict()
+
+    def run(mesh):
+        net = IFNet(RIFEConfig(**DRYRUN_RIFE)).cuda().train()
+        net.load_state_dict(start)
+        state = create_train_state(net.parameters(), total_steps=3)
+        step = make_train_step(net, state, mesh=mesh)
+        b = batch if mesh is None else shard_batch(mesh, batch)
+        losses = [step(b).item() for _ in range(3)]
+        return losses, {k: p.detach().clone() for k, p in net.named_parameters()}
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    ref_losses, ref = run(None)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        k1, k2 = tw.launches, tw.grad_launches
+        losses, got = run(make_mesh(1))
+        assert tw.launches > k1 and tw.grad_launches > k2
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(losses, ref_losses):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for k, p in ref.items():
+        assert (got[k] - p).abs().max().item() <= 1e-5 * max(1.0, p.abs().max().item()), k

@@ -117,16 +117,47 @@ def _compile_aot_cli(tmp):
         main(["--load", str(tmp / "none.pt2"), "--device", "cpu"])
 
 
+def _blind_study_cli(module):
+    def entry(tmp):
+        import importlib
+
+        main = importlib.import_module(f"vfisr_tpu_torch.gui.{module}").main
+        with pytest.raises(FileNotFoundError, match="interval not found"):  # no clip
+            main(["--clip", "none", "--data-dir", str(tmp), "--output-dir", str(tmp / "out"),
+                  "--device", "cpu"])
+
+    entry.__name__ = f"_{module}_cli"
+    return entry
+
+
+def _dryrun_rank(tmp):
+    """A rank of the dry run (the data-parallel step of an f32 RIFE), here
+    the one rank of a gloo group of one."""
+    import torch.distributed as dist
+
+    from vfisr_tpu_torch.parallel.dryrun import _rank
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}", rank=0, world_size=1)
+    try:
+        assert _rank(0, 1, "cpu")["differing"] == 0
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("entry", [_sweep, _benchmarks, _experiments_cli, _benchmark_cli,
                                    _extract_cli, _eval_vfi_cli, _eval_sr_cli, _gate_cli,
-                                   _calibrate_router_cli, _calibrate_lpips_cli, _compile_aot_cli])
+                                   _calibrate_router_cli, _calibrate_lpips_cli, _compile_aot_cli,
+                                   _blind_study_cli("benchmark_proper"),
+                                   _blind_study_cli("benchmark_all"),
+                                   _blind_study_cli("generate_clips"), _dryrun_rank])
 def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
     """The sweep, the triplet benchmark, the interval extraction (Farneback's
-    f32 convolutions), their CLIs, the held-out evaluation and gate CLIs
-    and the export CLI turn TF32 off before any work (here the harnesses
-    stop early: no interval, no clip; the gate has no checkpoint to score;
-    the calibrations refuse to write over the shipped gate and heads; the
-    export has no artifact to run)."""
+    f32 convolutions), their CLIs, the held-out evaluation and gate CLIs,
+    the export CLI, the blind study's CLIs (RIFE and the flow model) and a
+    rank of the data-parallel dry run turn TF32 off before any work (here
+    the harnesses stop early: no interval, no clip; the gate has no
+    checkpoint to score; the calibrations refuse to write over the shipped
+    gate and heads; the export has no artifact to run)."""
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
         entry(tmp_path)
@@ -138,14 +169,18 @@ def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
 # the port's device paths: the streaming pipeline and its CLIs, the benches,
 # the harnesses and their CLIs, the trainer (with its VFIMamba path), the
 # interval extraction and the held-out evaluation and gate CLIs, the clip
-# renderer and the calibrations, and the export and its CLI
+# renderer and the calibrations, the export and its CLI, the scale-out and
+# the blind study's clip generation
 DEVICE_PATHS = ("pipeline", "pipeline.flagship", "pipeline.streaming", "process",
                 "batch_process", "bench", "benchmark", "run_experiments", "train.__main__",
                 "harness", "harness.experiments", "harness.device_sweep", "harness.triplet",
                 "data.extract_intervals", "data.draw", "train.data", "eval_vfi_quality",
                 "eval_sr_quality", "gate_checkpoint", "data.synthetic_clip", "make_synthetic_clip",
                 "calibrate_router", "evaluation.lpips_calibrate", "calibrate_lpips",
-                "models.sota.vfimamba", "utils.aot", "compile_aot")
+                "models.sota.vfimamba", "utils.aot", "compile_aot", "parallel",
+                "parallel.mesh", "parallel.launch", "parallel.dryrun", "gui",
+                "gui.benchmark_proper", "gui.benchmark_all", "gui.generate_clips",
+                "prepare_blind_study")
 
 
 def test_device_paths_import_no_scipy_pandas_matplotlib_or_yaml():

@@ -496,13 +496,18 @@ def _labels() -> dict:
         ("MAP", 0.8, 2): (_ink("".join(_MAP_INK), (17, 49)), (-17, 1)),
         ("AMMO 30/120", 1.1, 2): (_ink("".join(_AMMO30120_INK), (29, 220)), (-26, 0)),
         ("A7", 0.8, 1): (_ink("".join(_A7_INK), (17, 28)), (-17, 0)),
+        # the blind study's side labels, drawn at thickness 8 then 3: OpenCV
+        # 5 draws both the same (its anti-aliased glyphs cap the weight)
+        **{("A", 2.0, th): (_ink("".join(_A_INK), (41, 40)), (-41, 0)) for th in (3, 8)},
+        **{("B", 2.0, th): (_ink("".join(_B_INK), (41, 34)), (-41, 4)) for th in (3, 8)},
     }
 
 
 def put_label(img: np.ndarray, text: str, org, scale: float, colour, thickness: int) -> np.ndarray:
     """``cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, scale, colour,
     thickness)`` for the fixed labels of the scenes and clips ("HP" 0.5/1,
-    "MAP" 0.8/2, "AMMO 30/120" 1.1/2, "A7" 0.8/1), on any background, any
+    "MAP" 0.8/2, "AMMO 30/120" 1.1/2, "A7" 0.8/1, and the blind study's
+    "A" and "B" 2/8 and 2/3), on any background, any
     colour and at any origin (clipped to the image); in place, returns img."""
     key = (text, float(scale), int(thickness))
     if key not in _labels():
@@ -774,4 +779,22 @@ _A7_INK = (
     "7f93A0m+r/9d4XKx/39KgGiWp/+jQPSi/8vhcqf+LwbT3v/fc4Jox//fBREeMAUz1vx/uxcE9v3/nwX3wHEwLfoT"
     "EUpn4B6IBDMK/j91goCY///1oB54ygpmXPzfDnPB2f/9UA/Ugvkm//9rwOSy/79mA3vghziYX/x/J9zlgq/+GgOp"
     "Jf8nQfgAfM2PRQ=="
+)
+
+_A_INK = (
+    "eNpjYEABAtG5EGDDyIAHaH/9DwMb8Snc+B8BvHErE/2FpG4VbnV5SMr+fxfAqe4Msrr/6Th9gaLs/xFc6jpR1f1T"
+    "wa6M+Qmquv+N2NW5weRvQOl72INwCVT6dgBMgx02ZbxfoLINbG+grDnY1CXAnK/KMA3K/MCJRd0+qOQJBgZLmMUR"
+    "mMrk/0LlchgYGG9D2dsw1VVDpX6JAjkNUM5vSQx1sMDYAuKo/IPyitGVmaM66RiUdxFd3VSoxCcuMDcTps0AVRn7"
+    "W6j4Aghf+CeU34uqLgim3xUqsB7Kf86Com4DVPgpM1QgGKbRC1mZCIY17O+gIiuQ1eXAdBvChWZCRb7xI6k7BRW8"
+    "ihCyhWlNRYhpwsTahOFABJZqDyHUtf/HA/4pwZQxPcan7n89TJ0LXmX/78CS/yL86v7bQJTxfCagbhZEXRwBZf/f"
+    "c4DV7SGk7n8YSJksLMH/LclHBav/I6fdShhvJ3qaVISl6t/iQN413JkLlgX/FzIwmKK5FhnAfXiegWEyjD0NMw9y"
+    "f4RJ6rG9hjHNsOT9OTDJblcY6zK2ssQKJntP8haEcdYMaxnWCimS/nQAACOCCfo="
+)
+
+_B_INK = (
+    "eNpjCc5FB/FepgpsDHDQ8B8r+LQ6RgiqYud/XOBHHTsBFf//XzMhpOL/KwVCKv5f5CGk4n8xkoqFyRCQUrfwKULF"
+    "DUaEijRECPB0IZRYY1XBwLAQriIDhwpJuIpWHCoYnsGdh0vFfZhwBw4VfP9gwkE4VJTD3SGDXYX9d5joHaQQKxaF"
+    "AHHDkMVwO/46EQr1DkIxt5QNv4o/aQRT0G4lginoiwPBFPRBD0nF7j4omHngFULJA3asIcZc8g2uJAtHqDvCw+wR"
+    "G464nQE3xBCHCnu4ijAcKgThKqpwqBCHq6jAocINriISh4pNcBWW2FXEwhV8F8SiglFuHjw4/s9HhNitg1Bw+iNy"
+    "zBgTytmrCMXtOW4CKu7J4k8ffyfxgBy+EZf813VWEK95vsCQ+/X03I45wdwwzwMAVl3KJQ=="
 )

@@ -42,17 +42,27 @@ def _as_batch_f32(frame, device) -> torch.Tensor:
     return x[None] if x.ndim == 3 else x
 
 
+def round_u8(x: torch.Tensor) -> torch.Tensor:
+    """Float in [0, 255] -> uint8, rounded half up and clipped, on x's device."""
+    return torch.clamp(torch.floor(x + 0.5), 0, 255).to(torch.uint8)
+
+
 def _to_u8(x: torch.Tensor) -> np.ndarray:
-    out = torch.clamp(torch.floor(x + 0.5), 0, 255).to(torch.uint8).cpu().numpy()
+    out = round_u8(x).cpu().numpy()
     return out[0] if out.shape[0] == 1 else out
 
 
 # ---------------------------------------------------------------- simple ----
 
 
+def blend(x0: torch.Tensor, x1: torch.Tensor, t: float) -> torch.Tensor:
+    """x0*(1-t) + x1*t of float tensors (the linear blend's arithmetic)."""
+    return x0 * (1 - t) + x1 * t
+
+
 def linear_blend(prev: np.ndarray, curr: np.ndarray, t: float, device: str = "cuda") -> np.ndarray:
     """prev*(1-t) + curr*t (cv2.addWeighted)."""
-    return _to_u8(_as_batch_f32(prev, device) * (1 - t) + _as_batch_f32(curr, device) * t)
+    return _to_u8(blend(_as_batch_f32(prev, device), _as_batch_f32(curr, device), t))
 
 
 def frame_dup(prev: np.ndarray, curr: np.ndarray, t: float) -> np.ndarray:
@@ -71,7 +81,13 @@ def edge_enhance(img: np.ndarray, strength: float = 1.3, device: str = "cuda") -
     """Unsharp mask of a uint8 frame; strength <= 0 returns it unchanged."""
     if strength <= 0:
         return img
-    return _to_u8(edge_enhance_core(_as_batch_f32(img, device), strength) - 0.5 + 0.5)
+    return _to_u8(edge_enhance_f(_as_batch_f32(img, device), strength))
+
+
+def edge_enhance_f(x: torch.Tensor, strength: float) -> torch.Tensor:
+    """``edge_enhance``'s float result of NHWC float x in [0, 255], before
+    the rounding to uint8."""
+    return edge_enhance_core(x, strength) - 0.5 + 0.5
 
 
 def calc_motion(prev_gray: np.ndarray, curr_gray: np.ndarray, device: str = "cuda") -> float:

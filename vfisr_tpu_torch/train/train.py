@@ -13,7 +13,13 @@ before the increment. ``use_remat`` recomputes the forward in the backward
 ``make_sr_train_step`` is the SR step (batch {lr, hr}, no remat, as the JAX
 one).
 
-Data-parallel training (the JAX step's mesh) is not ported; one card.
+Data parallel (``mesh=``, a ``parallel/mesh.py`` mesh): as under the JAX
+step's ``jit`` with the parameters replicated and the batch sharded over
+'data', each rank takes its block of the batch (``shard_batch``); the
+gradients are averaged over 'data' (one all-reduce per dtype) before the
+clip, so the clip and AdamW see the full batch's gradient, and the returned
+loss is the full batch's mean. Building the step broadcasts the parameters
+from rank 0, so every rank starts, and stays, identical.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from dataclasses import dataclass
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 MAX_GRAD_NORM = 1.0  # optax.clip_by_global_norm(1.0) in the JAX chain
@@ -120,9 +127,7 @@ def apply_gradients(state: TrainState, params: list) -> None:
     """The JAX chain's update from the parameters' ``.grad``: clip by the
     global norm, then AdamW at ``schedule(step)``; step += 1. A parameter
     without a gradient takes a zero one (optax decays it all the same)."""
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+    _zero_missing_grads(params)
     clip_by_global_norm([p.grad for p in params], MAX_GRAD_NORM)
     for group in state.optimizer.param_groups:
         group["lr"] = state.schedule(state.step)
@@ -130,29 +135,67 @@ def apply_gradients(state: TrainState, params: list) -> None:
     state.step += 1
 
 
+def _zero_missing_grads(params: list) -> None:
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def _collective_by_dtype(tensors: list, op: Callable[[torch.Tensor], None]) -> None:
+    """op on one flat buffer per dtype of ``tensors``, the results copied
+    back in place: one collective per dtype, not one per tensor, in the
+    order the dtypes first appear (the same on every rank)."""
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        group = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in group])
+        op(flat)
+        for t, part in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(part.view_as(t))
+
+
+def _broadcast_params(params: list) -> None:
+    """Every rank's parameters set to rank 0's."""
+    with torch.no_grad():
+        _collective_by_dtype([p.data for p in params], lambda buf: dist.broadcast(buf, src=0))
+
+
 def _make_step(module: torch.nn.Module, state: TrainState,
-               loss_of: Callable[[dict], torch.Tensor]) -> Callable[[dict], torch.Tensor]:
+               loss_of: Callable[[dict], torch.Tensor], mesh=None) -> Callable[[dict], torch.Tensor]:
     """``step(batch) -> loss`` (a device scalar, detached): the gradients of
-    ``loss_of(batch)``, then ``apply_gradients``."""
+    ``loss_of(batch)``, averaged over the mesh's 'data' axis when there is
+    a mesh (the loss too), then ``apply_gradients``."""
     params = [p for p in module.parameters() if p.requires_grad]
+    group = ranks = None
+    if mesh is not None:
+        group, ranks = mesh.get_group("data"), mesh.size(mesh.mesh_dim_names.index("data"))
+        _broadcast_params(params)
+
+    def average(buf: torch.Tensor) -> None:
+        dist.all_reduce(buf, group=group)  # SUM: gloo has no AVG
+        buf.div_(ranks)
 
     def step(batch: dict) -> torch.Tensor:
         for p in params:
             p.grad = None
         loss = loss_of(batch)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            _zero_missing_grads(params)
+            _collective_by_dtype([p.grad for p in params] + [loss], average)
         apply_gradients(state, params)
-        return loss.detach()
+        return loss
 
     return step
 
 
 def make_train_step(module: torch.nn.Module, state: TrainState,
-                    loss_fn: Callable = vfi_loss,
-                    use_remat: bool = True) -> Callable[[dict], torch.Tensor]:
+                    loss_fn: Callable = vfi_loss, use_remat: bool = True,
+                    mesh=None) -> Callable[[dict], torch.Tensor]:
     """One VFI training step: ``step(batch) -> loss`` (a device scalar,
-    detached). batch: {img0, img1, gt [N,H,W,3], t [N]}; the module maps
-    (img0, img1, t) to its prediction or a tuple that starts with it."""
+    detached). batch: {img0, img1, gt [N,H,W,3], t [N]}, with a mesh this
+    rank's block of it; the module maps (img0, img1, t) to its prediction or
+    a tuple that starts with it."""
 
     def forward(img0, img1, t, gt):
         out = module(img0, img1, t)
@@ -163,12 +206,14 @@ def make_train_step(module: torch.nn.Module, state: TrainState,
         args = (batch["img0"], batch["img1"], batch["t"], batch["gt"])
         return checkpoint(forward, *args, use_reentrant=False) if use_remat else forward(*args)
 
-    return _make_step(module, state, loss_of)
+    return _make_step(module, state, loss_of, mesh)
 
 
 def make_sr_train_step(module: torch.nn.Module, state: TrainState,
-                       loss_fn: Callable = sr_loss) -> Callable[[dict], torch.Tensor]:
+                       loss_fn: Callable = sr_loss, mesh=None) -> Callable[[dict], torch.Tensor]:
     """One SR training step: ``step(batch) -> loss`` (a device scalar,
-    detached). batch: {lr [N,h,w,3], hr [N,h*s,w*s,3]}; the module maps lr
-    to its hr prediction. No remat, as the JAX SR step has none."""
-    return _make_step(module, state, lambda batch: loss_fn(module(batch["lr"]), batch["hr"]))
+    detached). batch: {lr [N,h,w,3], hr [N,h*s,w*s,3]} (with a mesh, this
+    rank's block); the module maps lr to its hr prediction. No remat, as
+    the JAX SR step has none."""
+    return _make_step(module, state, lambda batch: loss_fn(module(batch["lr"]), batch["hr"]),
+                      mesh)
