@@ -370,6 +370,34 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    PSNR and SSIM of degraded and lanczos against the same frames scored on
    the CPU; ``extract_clip``'s cut of a Y4M equal to the source's frames.
    Prints ms and K1 launches per method; K1 and K2 per launch shape.
+26. the last modules of the port, every K1 launch counted (its count set
+   to 0 before each part and read after) and held against its twin as it
+   goes, with ``window_origins`` raising. (a) RIFE's RefineNet: full-width
+   RIFE from weights/rife.npz in the bf16 deploy config with ``refine=True``
+   and seeded normal RefineNet parameters (no checkpoint holds them; a
+   fresh head adds zero); one 1080p pair through ``shared_flow_apply`` (5
+   K1), the same call with the plain twin (the main path's tolerance), the
+   anchor timestep changed by the head and the derived ones not; ms per
+   pair with and without refine, in turns. (b) The per-timestep flagship
+   step (``FlagshipConfig(shared_flow=False)``): 2 pairs counted (17 K1 per
+   pair), one pair against the twin, ms per pair beside the shared step's
+   in turns, and the midpoints' PSNR against the scene's true in-between
+   frames (a result). (c) ``data/jpeg.py`` on a 1080p frame at quality 92
+   and 28: the card's bytes and decoded pixels equal to the CPU run's; ms
+   per frame, the card's share (CUDA events) apart from the host's. (d)
+   ``gui/web_app.py``'s StudyState on step 21's processed clip, served on
+   127.0.0.1 at an ephemeral port and walked over HTTP (clips, clip, pairs,
+   every frame of 2 pairs rendered by RIFE and the flow model, a guess,
+   results, save); the served JPEGs decode to 960x540, the control is the
+   JPEG of its ground-truth frame at 540 rows, byte for byte. (e) ``gui/video_blind_study.py``'s AppState on step
+   25's study videos: a 206 Range response, a quiz round, ``new_interval``
+   cutting Y4M full videos written here. (f) ``lpips_ordering_study`` and
+   ``check_expert_downscale`` at ``--pairs 2 --stride 1`` on 0.2 s clips the
+   card renders (the hard and smooth presets at 1920x1080, 60 fps), their
+   JSON summaries and VFIMamba's native-trunk peak memory at 2560x1440.
+   (g) ``generate_comprehensive_report`` and ``generate_report_figures`` on
+   step 21's experiment_results.json (without matplotlib the figures script
+   must say so by name; its table is made then from the same rankings).
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
@@ -379,7 +407,7 @@ steps, the evaluation, the bench, the sweep, the triplet benchmark, the
 counted extraction of the ingest, step 22's trainer, evaluation and gate
 runs, step 23's calibration and gate loads, step 24's VFIMamba train steps
 and trainer runs, the exported program's runs, step 25's compared
-data-parallel steps and the blind study's CLIs; K2: the RIFE and the SAFA
+data-parallel steps and the blind study's CLIs, step 26's parts; K2: the RIFE and the SAFA
 train steps, step 22's trainer runs, step 24's VFIMamba steps and step 25's
 compared steps)
 and the device time, bound, plain-twin and grid_sample time of exactly
@@ -4504,9 +4532,10 @@ def scaleout_phase(kw, card: str) -> tuple:
             path_numbers(sum(acc["counts2"].values()), err2, total2, 1))
 
 
-def blind_study_phase(kw, card: str, data_dir: Path) -> dict:
+def blind_study_phase(kw, card: str, data_dir: Path) -> tuple:
     """Step 25 (c) of the module docstring. Returns K1's numbers over the
-    CLIs' launches."""
+    CLIs' launches, and the temporary directory of the study's videos
+    (``bench/``) for step 26: the caller cleans it up."""
     import contextlib as cl
     import io
 
@@ -4605,9 +4634,11 @@ def blind_study_phase(kw, card: str, data_dir: Path) -> dict:
                                                for i in range(4)), "the Y4M cut's frames")
         print(f"study extract_clip: frames 2-5 of lanczos.y4m cut by copying, equal to the "
               f"source's; get_full_video_duration {bp.get_full_video_duration(cut):.6f} s")
+    except BaseException:
+        tmp.cleanup()
+        raise
     finally:
         bp.run_method, gc.generate_method = real
-        tmp.cleanup()
     for (cli, method), (ms, k1) in per.items():
         print(f"study {cli} {method} at 2560x1440 ({STUDY_KEYFRAMES} keyframes, {STUDY_FRAMES} "
               f"frames): {ms:.3f} ms (host clock, synchronized), K1 {k1} launches; {card}")
@@ -4615,6 +4646,437 @@ def blind_study_phase(kw, card: str, data_dir: Path) -> dict:
     require(not acc["checks2"], "no K2 launch in the blind study")
     total1 = _kernel_by_shape(kw, "study", "run", acc["firsts1"], acc["counts1"])
     _phase("study_kernel_timing", t0)
+    return path_numbers(sum(acc["counts1"].values()), err1, total1, 1), tmp
+
+
+# step 26: the last modules of the port. (a) RIFE's RefineNet on full-width
+# RIFE (weights/rife.npz, bf16 deploy config) with seeded non-zero RefineNet
+# parameters; (b) the per-timestep flagship step (FlagshipConfig
+# (shared_flow=False)); (c) the JPEG codec (data/jpeg.py) on a 1080p frame;
+# (d) the image-pair study server (gui/web_app.py) on step 21's processed
+# clip over HTTP; (e) the video study server (gui/video_blind_study.py) on
+# step 25's study videos; (f) lpips_ordering_study and check_expert_downscale
+# on clips the card renders; (g) the two report scripts on step 21's
+# experiment_results.json
+REFINE_SEED, REFINE_SCALE = 26, 0.05  # the RefineNet's seeded normal parameters
+EXACT_T_PAIRS = 2  # timed pairs of the per-timestep step
+# K1 per 1080p pair: the shared step 18 (analysis 13, the IFNet's 4, the fused
+# fusion warp); the per-timestep step 17 (the analysis and 4 IFNet warps at batch 3)
+EXACT_T_LAUNCHES = 17
+REFINE_LAUNCHES = 5  # shared_flow_apply alone: the IFNet's 4 and the fused warp
+JPEG_QUALITIES = (92, 28)
+STUDY_SEED, STUDY_PAIRS = 0, 2
+STUDY_SERVER_METHODS = "rife_default,optical_flow_basic"  # every pair renders RIFE and the flow model
+SCRIPT_SECONDS = 0.2  # rendered clips: 12 frames at 60 fps, 6 keyframe pairs
+SCRIPT_PAIRS = 2
+FULL_VIDEO = (640, 360, 10, 30)  # the video study's full videos: w, h, fps, frames (3 s)
+
+
+def _plain(kw):
+    """K1's wrapper replaced by its plain twin (window_origins in place)."""
+    def plain(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32):
+        return _twin(kw, kw.warp_windowed_plain, img, flow, t, r, border, compute_dtype)
+    return plain
+
+
+def _with_twin(kw, fn):
+    real = kw.warp_windowed
+    kw.warp_windowed = _plain(kw)
+    try:
+        return fn()
+    finally:
+        kw.warp_windowed = real
+
+
+def _u8_close(label: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """uint8 frames of a run with the kernels against the same run with the
+    plain twins: the main path's tolerance (max 2 LSB, mean 0.05 LSB)."""
+    d = (a.int() - b.int()).abs()
+    print(f"{label} with kernel vs with plain twin: max {d.max().item()} LSB, mean "
+          f"{d.float().mean().item():.6f} LSB (tolerance max 2, mean 0.05)")
+    require(d.max().item() <= 2 and d.float().mean().item() <= 0.05, f"{label}: kernel vs twin")
+
+
+def _refine_module(rife_npz: Path):
+    """Full-width RIFE, bf16 deploy config, refine on: the IFNet from
+    rife.npz, the RefineNet (which no checkpoint holds) seeded normal."""
+    from vfisr_tpu_torch.models.sota.rife import IFNet, RIFEConfig
+    from vfisr_tpu_torch.utils.checkpoint import load_npz, params_from_jax
+
+    cfg = RIFEConfig(dtype=torch.bfloat16, level_warp_radius=(2, 2), final_warp_radius=(3, 4),
+                     refine=True)
+    module = IFNet(cfg)
+    missing, unexpected = module.load_state_dict(params_from_jax(load_npz(str(rife_npz))),
+                                                 strict=False)
+    require(not unexpected and missing and all(k.startswith("refine.") for k in missing),
+            f"rife.npz into the refine config: missing {missing}, unexpected {unexpected}")
+    gen = torch.Generator().manual_seed(REFINE_SEED)
+    with torch.no_grad():
+        for p in module.refine.parameters():
+            p.copy_(REFINE_SCALE * torch.randn(p.shape, generator=gen))
+    return module.to(device="cuda", dtype=torch.bfloat16).eval().requires_grad_(False)
+
+
+def study_slice_phase(kw, card: str, vfi, rife_npz: Path, gate_json: Path, ingest_root: Path,
+                      study_root: Path) -> dict:
+    """Step 26 of the module docstring. Returns K1's numbers over the
+    phase's counted launches."""
+    import contextlib as cl
+    import io
+    import random
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from vfisr_tpu_torch import (check_expert_downscale, generate_comprehensive_report,
+                                 generate_report_figures, lpips_ordering_study,
+                                 make_synthetic_clip)
+    from vfisr_tpu_torch.core.frames import pad_to_multiple, to_uint8, unpad
+    from vfisr_tpu_torch.core.resize import resize
+    from vfisr_tpu_torch.data import jpeg
+    from vfisr_tpu_torch.data.video_io import VideoReader, VideoWriter
+    from vfisr_tpu_torch.gui import video_blind_study as vbs, web_app
+    from vfisr_tpu_torch.models.sota.rife import shared_flow_apply
+    from vfisr_tpu_torch.pipeline.flagship import FlagshipConfig, FlagshipVFI
+
+    t0 = time.perf_counter()
+    acc = _counting_acc()
+    dev = torch.device("cuda")
+    out_hw = (1440, 2560)
+    frames = [game_frame(i, dev) for i in range(EXACT_T_PAIRS + 1)]
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_step26_")
+    root = Path(tmp.name)
+    try:
+        # (a) RefineNet: one 1080p pair through shared_flow_apply (the anchor
+        # timestep through the RefineNet), counted and checked
+        refine = _refine_module(rife_npz)
+        x0, x1 = (pad_to_multiple(f.float()[None] / 255.0, 32)[0] for f in frames[:2])
+
+        def mids(module):
+            with torch.no_grad():
+                return to_uint8(unpad(shared_flow_apply(module, x0, x1, TS), H, W))
+
+        mids(refine)  # warm-up
+        got, k1, _ = _acc_run(kw, acc, "refine", lambda: mids(refine))
+        require(k1 == REFINE_LAUNCHES, f"refine: {k1} K1 launches, not {REFINE_LAUNCHES}")
+        _u8_close("refine pair", got, _with_twin(kw, lambda: mids(refine)))
+        plain_mids = mids(vfi._module)
+        d = (got.int() - plain_mids.int()).abs()
+        require(d.max().item() > 0 and (got[1].int() - plain_mids[1].int()).abs().max() > 0,
+                "the seeded RefineNet changes the anchor timestep")
+        require(torch.equal(got[0], plain_mids[0]) and torch.equal(got[2], plain_mids[2]),
+                "the derived timesteps do not go through the RefineNet")
+        # in turns: without, with, with, without (10 pairs each, CUDA events)
+        turns = [("without", vfi._module), ("with", refine), ("with", refine),
+                 ("without", vfi._module)]
+        ms = {"with": [], "without": []}
+        for name, module in turns:
+            ms[name].append(time_ms(lambda: mids(module), 10))
+        print(f"refine: full-width RIFE bf16, seeded RefineNet (seed {REFINE_SEED}, scale "
+              f"{REFINE_SCALE}), one 1080p pair, {len(TS)} timesteps through shared_flow_apply: "
+              f"ms/pair with refine {', '.join(f'{x:.3f}' for x in ms['with'])}, without "
+              f"{', '.join(f'{x:.3f}' for x in ms['without'])} (CUDA events over 10 pairs, "
+              f"in turns without/with/with/without); K1 {k1} launches; anchor t=0.5 differs by "
+              f"max {d.max().item()} LSB, t=0.25/0.75 equal; {card}")
+        del refine
+        t0 = _phase("step26_refine", t0)
+
+        # (b) the per-timestep flagship step against the shared step
+        exact = FlagshipVFI(device="cuda", config=FlagshipConfig(shared_flow=False))
+        exact.load(weights_path=str(rife_npz), gate_path=str(gate_json))
+        require(exact.base_config.shared_flow is False, "shared_flow=False kept by load")
+
+        def stream(model):
+            model.reset_history()
+            return [model.fused_stream_step(frames[i], frames[i + 1], SCALE, TS)
+                    for i in range(EXACT_T_PAIRS)]
+
+        stream(exact)  # warm-up
+        ups, k1, _ = _acc_run(kw, acc, "exact_t", lambda: stream(exact))
+        require(k1 == EXACT_T_LAUNCHES * EXACT_T_PAIRS,
+                f"exact_t: {k1} K1 launches in {EXACT_T_PAIRS} pairs")
+        exact.reset_history()
+        twin = _with_twin(kw, lambda: exact.fused_stream_step(frames[0], frames[1], SCALE, TS))
+        _u8_close("per-timestep pair", ups[0], twin)
+        shared = stream(vfi)
+        # in turns: per-timestep, shared, shared, per-timestep, each over the pairs
+        times = {"per-timestep": [], "shared": []}
+        for name in ("per-timestep", "shared", "shared", "per-timestep"):
+            model = exact if name == "per-timestep" else vfi
+            model.reset_history()
+            for i in range(EXACT_T_PAIRS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                model.fused_stream_step(frames[i], frames[i + 1], SCALE, TS)
+                end.record()
+                end.synchronize()
+                times[name].append(start.elapsed_time(end))
+        quality = {}
+        for name, outs in (("per-timestep", ups), ("shared", shared)):
+            vals = []
+            for i, up in enumerate(outs):
+                require(up.dtype == torch.uint8 and tuple(up.shape) == (1 + len(TS), *out_hw, 3),
+                        f"{name} output {tuple(up.shape)}")
+                for k, t in enumerate(TS):
+                    truth = to_uint8(resize(game_frame(i + t, dev).float()[None] / 255.0, out_hw,
+                                            "lanczos4"))[0]
+                    vals.append(psnr(up[1 + k], truth))
+            quality[name] = sum(vals) / len(vals)
+        for name in times:
+            print(f"flagship {name} step 1080p->1440p: ms/pair "
+                  f"{', '.join(f'{x:.3f}' for x in times[name])} (CUDA events, after warm-up, "
+                  f"the two steps in turns); "
+                  f"midpoint PSNR against the scene's true in-between frames {quality[name]:.4f} dB "
+                  f"(a result, not a gate); {card}")
+        print(f"exact_t: {EXACT_T_LAUNCHES} K1 launches per pair (analysis 13 + IFNet 4 at batch "
+              f"3), against {LAUNCHES_PER_PAIR} in the shared step")
+        del exact
+        torch.cuda.empty_cache()
+        t0 = _phase("step26_exact_t", t0)
+
+        # (c) JPEG on a 1080p frame: the card against the CPU, ms per frame
+        frame = game_frame(0, dev)
+        for q in JPEG_QUALITIES:
+            jpeg.decode(jpeg.encode(frame, q, "cuda"), "cuda")  # warm-up
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            data = jpeg.encode(frame, q, "cuda")
+            torch.cuda.synchronize()
+            enc_ms = (time.perf_counter() - start) * 1e3
+            start = time.perf_counter()
+            dec = jpeg.decode(data, "cuda")
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - start) * 1e3
+            fwd_ms = time_ms(lambda: jpeg.forward_blocks(frame, q), 5)
+            info = jpeg.parse(data)
+            coefs = torch.from_numpy(jpeg.entropy_decode(info)).cuda()
+            inv_ms = time_ms(lambda: jpeg.inverse_blocks(coefs, jpeg.layout(info), info["q"]), 5)
+            cpu_data = jpeg.encode(frame.cpu(), q, "cpu")
+            cpu_dec = jpeg.decode(cpu_data, "cpu")
+            require(data == cpu_data and torch.equal(dec.cpu(), cpu_dec),
+                    f"JPEG q{q}: the card's bytes and pixels equal the CPU run's (tolerance 0)")
+            print(f"jpeg q{q} 1920x1080: {len(data)} bytes, equal to the CPU run's, decoded equal; "
+                  f"PSNR {psnr(dec, frame):.4f} dB; encode {enc_ms:.3f} ms (card {fwd_ms:.3f} ms, "
+                  f"host {enc_ms - fwd_ms:.3f} ms), decode {dec_ms:.3f} ms (card {inv_ms:.3f} ms, "
+                  f"host {dec_ms - inv_ms:.3f} ms); host clock, card shares by CUDA events; {card}")
+        t0 = _phase("step26_jpeg", t0)
+
+        # (d) the image-pair study server on step 21's processed clip, over HTTP
+        processed = ingest_root / "processed"
+        state = web_app.StudyState(processed, root / "web", methods=STUDY_SERVER_METHODS.split(","),
+                                   num_pairs=STUDY_PAIRS, seed=STUDY_SEED, device="cuda")
+        render_ms = []
+        real_render = state._render_method
+
+        def timed_render(method, f0, f1, gt):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = real_render(method, f0, f1, gt)
+            torch.cuda.synchronize()
+            render_ms.append((method, (time.perf_counter() - start) * 1e3))
+            return out
+
+        state._render_method = timed_render
+        server = ThreadingHTTPServer(("127.0.0.1", 0), web_app.make_handler(state))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def call(path, body=None, headers=None):
+            req = urllib.request.Request(base + path, headers=headers or {},
+                                         data=None if body is None else json.dumps(body).encode(),
+                                         method="GET" if body is None else "POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, dict(r.headers), r.read()
+
+        try:
+            def walk():
+                clips = json.loads(call("/api/clips")[2])["clips"]
+                require(INGEST_CLIP in clips, f"web_app clips {clips}")
+                call("/api/clip", {"clip": INGEST_CLIP})
+                pairs = json.loads(call("/api/pairs")[2])["pairs"]
+                served = {}
+                for p in pairs:
+                    for pos in ("left", "right", "gt"):
+                        code, hdr, data = call(f"/api/frame/{p['idx']}/{pos}")
+                        require(code == 200 and hdr["Content-Type"] == "image/jpeg",
+                                f"web_app frame {p['idx']}/{pos}: {code}")
+                        served[(p["idx"], pos)] = data
+                r = json.loads(call("/api/guess", {"pair_idx": pairs[0]["idx"],
+                                                   "choice": "left"})[2])
+                res = json.loads(call("/api/results")[2])
+                saved = json.loads(call("/api/save", {})[2])
+                return pairs, served, r, res, saved
+
+            start = time.perf_counter()
+            (pairs, served, r, res, saved), k1, _ = _acc_run(kw, acc, "web_app", walk)
+            walk_s = time.perf_counter() - start
+        finally:
+            server.shutdown()
+            server.server_close()
+        require(len(pairs) == STUDY_PAIRS and r["total"] == res["total"] == 1
+                and Path(saved["path"]).is_file(), f"web_app session {res}")
+        for (idx, pos), data in served.items():
+            img = jpeg.decode(data, "cuda")
+            require(tuple(img.shape) == (540, 960, 3), f"web_app {idx}/{pos}: {tuple(img.shape)}")
+        gt_name = state.pairs[0]["triplet"]["gt_intermediate"]
+        from vfisr_tpu_torch.data.png import read_png
+
+        gt = read_png(processed / INGEST_CLIP / "ground_truth" / "frames"
+                      / gt_name[len(gt_name) // 2])
+        gt_small = resize(torch.from_numpy(gt).cuda(), (540, 960), "area")
+        control = served[(state.pairs[0]["idx"], "gt")]
+        require(control == jpeg.encode(gt_small, web_app.JPEG_QUALITY, "cuda"),
+                "web_app's control: the JPEG of its ground-truth frame at 540 rows")
+        p_gt = psnr(jpeg.decode(control, "cuda"), gt_small)
+        print(f"web_app on step 21's clip at 540 rows, methods {STUDY_SERVER_METHODS}, seed "
+              f"{STUDY_SEED}: {len(pairs)} pairs, {len(served)} JPEGs served (q{web_app.JPEG_QUALITY}"
+              f", each 960x540), the control the JPEG of its ground truth ({p_gt:.4f} dB from "
+              f"it); walk {walk_s:.3f} s "
+              f"(host clock: clips -> clip -> pairs -> frames -> guess -> results -> save); K1 "
+              f"{k1} launches; renders ms (a method's first includes its model's load) "
+              + ", ".join(f"{m} {ms:.3f}" for m, ms in render_ms) + f"; {card}")
+        t0 = _phase("step26_web_app", t0)
+
+        # (e) the video study server on step 25's study videos
+        full = root / "full"
+        fw, fh, ffps, fn = FULL_VIDEO
+        for name in ("control", "lanczos"):
+            with VideoWriter(str(full / f"{name}.y4m"), fw, fh, ffps) as w:
+                for i in range(fn):
+                    w.write(game_frame(i + (name == "lanczos"), "cpu", h=fh, w=fw, step=2).numpy())
+        app = vbs.AppState(str(study_root / "bench"), str(ingest_root / "full" /
+                                                           "experiment_results.json"),
+                           full_dir=str(full), duration=0.5, out_dir=str(root / "video"),
+                           device="cuda")
+        app.rng = random.Random(STUDY_SEED)
+        server = ThreadingHTTPServer(("127.0.0.1", 0), vbs.make_handler(app))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            models = app.models()
+            require(models == sorted(STUDY_METHODS), f"video study models {models}")
+            video = app.video_path("lanczos")
+            size = video.stat().st_size
+            code, hdr, body = call("/api/video/lanczos", headers={"Range": "bytes=1000-1999"})
+            require(code == 206 and hdr["Content-Range"] == f"bytes 1000-1999/{size}"
+                    and body == video.read_bytes()[1000:2000], f"video Range: {code} {hdr}")
+            token = json.loads(call("/api/quiz/start", {})[2])["token"]
+            answer = app.quiz[token]
+            code, _, body = call(f"/api/quiz/video?t={token}", headers={"Range": "bytes=0-9"})
+            require(code == 206 and len(body) == 10, f"quiz video {code}")
+            g = json.loads(call("/api/quiz/guess", {"token": token, "guess": answer})[2])
+            require(g["correct"] and g["total"] == 1, f"quiz guess {g}")
+            code, _, body = call("/api/new-interval", {})
+            cut = json.loads(body)
+            require(code == 200 and cut["status"] == "done", f"new_interval {code} {cut}")
+            meta = app.metadata()["clips"]["full"]["videos"]
+            start_f = int(round(cut["start_time"] * ffps))
+            with VideoReader(meta["lanczos"]) as c, VideoReader(str(full / "lanczos.y4m")) as src:
+                got = [c.read_i420() for _ in range(c.frame_count)]
+                want = [src.read_i420() for _ in range(fn)]
+            require(len(got) == int(round(0.5 * ffps)) and any(
+                all(np.array_equal(a, want[s + i]) for i, a in enumerate(got))
+                for s in (start_f - 1, start_f, start_f + 1)), "new_interval's cut frames")
+            res = json.loads(call("/api/experiment-results")[2])["experiments"]
+            require(res and all("base_name" in e for e in res), "experiment results served")
+        finally:
+            server.shutdown()
+            server.server_close()
+        print(f"video study on step 25's videos ({', '.join(models)}, {video.suffix}): a 206 of "
+              f"bytes 1000-1999 of {size}, a quiz round ({answer}, correct), new_interval cut "
+              f"{len(got)} frames at {cut['start_time']} s of the {fn / ffps:.1f} s full videos, "
+              f"{len(res)} experiment rows served")
+        t0 = _phase("step26_video_study", t0)
+
+        # (f) the two study scripts on clips the card renders
+        clips = {}
+        for preset, seed in (("hard", 431), ("smooth", 1)):
+            clips[preset] = root / f"{preset}.y4m"
+            with cl.redirect_stdout(io.StringIO()):
+                make_synthetic_clip.main([str(clips[preset]), "--preset", preset, "--seconds",
+                                          str(SCRIPT_SECONDS), "--seed", str(seed)])
+        t0 = _phase("step26_render", t0)
+        buf = io.StringIO()
+        start = time.perf_counter()
+        with cl.redirect_stdout(buf):
+            _, k1_los, _ = _acc_run(kw, acc, "lpips_ordering_study", lambda: lpips_ordering_study.main(
+                ["--pairs", str(SCRIPT_PAIRS), "--stride", "1", "--hard-clip", str(clips["hard"]),
+                 "--smooth-clip", str(clips["smooth"]), "--out", str(root / "lpips.json")]))
+        los_s = time.perf_counter() - start
+        los = json.loads((root / "lpips.json").read_text())
+        for name, fam in los["families"].items():
+            require(fam["pairs"] == SCRIPT_PAIRS and all(
+                math.isfinite(fam[k]) for k in ("lpips_blend_mean", "lpips_rife_mean",
+                                                 "psnr_blend_mean", "psnr_rife_mean")),
+                f"lpips_ordering_study {name}: {fam}")
+            print(f"lpips_ordering_study {name}: " + json.dumps(
+                {k: v for k, v in fam.items() if k not in ("rows", "clip")}))
+        print(f"lpips_ordering_study: {los_s:.3f} s (host clock; mode {los['lpips_mode']}), K1 "
+              f"{k1_los} launches")
+        t0 = _phase("step26_lpips_ordering_study", t0)
+        buf = io.StringIO()
+        start = time.perf_counter()
+        with cl.redirect_stdout(buf):
+            rc, k1_ced, _ = _acc_run(kw, acc, "check_expert_downscale", lambda: check_expert_downscale.main(
+                ["--clips", str(clips["hard"]), "--pairs", str(SCRIPT_PAIRS), "--stride", "1",
+                 "--out", str(root / "expert.json")]))
+        ced_s = time.perf_counter() - start
+        require(rc == 0, f"check_expert_downscale exit {rc}: {buf.getvalue()[-500:]}")
+        ced = json.loads((root / "expert.json").read_text())
+        require(ced["pairs"] == SCRIPT_PAIRS and ced["native_over_resident_mb"] > 0,
+                f"expert check {ced}")
+        print("check_expert_downscale: " + json.dumps({k: v for k, v in ced.items()
+                                                       if k not in ("rows", "created")}))
+        print(f"check_expert_downscale: {ced_s:.3f} s (host clock), K1 {k1_ced} launches; VFIMamba's "
+              f"native trunk at 2560x1440 peaked at {ced['native_peak_mb']} MB "
+              f"(torch.cuda.max_memory_allocated), {ced['native_over_resident_mb']} MB over what "
+              f"was resident before it, on {ced['card']}")
+        torch.cuda.empty_cache()
+        t0 = _phase("step26_check_expert_downscale", t0)
+
+        # (g) the report scripts on step 21's experiment_results.json
+        results = ingest_root / "full" / "experiment_results.json"
+        start = time.perf_counter()
+        with cl.redirect_stdout(io.StringIO()):
+            generate_comprehensive_report.main(["--results", str(results), "--output-dir",
+                                                str(root / "report")])
+        report = (root / "report" / "COMPREHENSIVE_REPORT.md").read_text()
+        require(f"**Hardware:** {torch.cuda.get_device_name(0)}" in report
+                and (root / "report" / "METHODS_REFERENCE.md").is_file(), "the report's files")
+        try:
+            import matplotlib  # noqa: F401
+            figures = True
+        except ImportError:
+            figures = False
+        if figures:
+            with cl.redirect_stdout(io.StringIO()):
+                generate_report_figures.main(["--results", str(results), "--output-dir",
+                                              str(root / "figures")])
+            table = (root / "figures" / "table1_results.tex").read_text()
+        else:
+            try:
+                generate_report_figures.main(["--results", str(results), "--output-dir",
+                                              str(root / "figures")])
+                require(False, "generate_report_figures without matplotlib")
+            except ImportError as e:
+                require("matplotlib" in str(e), f"generate_report_figures: {e}")
+            from vfisr_tpu_torch.analysis.data_analysis import load_results, rankings
+
+            table = generate_report_figures.results_table(rankings(load_results(results))["by_vfi_psnr"])
+        require(table.count("\\\\\n") >= 2, "the results table's rows")
+        print(f"reports on step 21's results: COMPREHENSIVE_REPORT.md {len(report.splitlines())} "
+              f"lines, METHODS_REFERENCE.md, table1_results.tex {table.count(chr(10))} lines; "
+              + ("figures drawn" if figures else "figures not drawn: matplotlib is not installed "
+                 "here, and generate_report_figures says so by name")
+              + f"; {time.perf_counter() - start:.3f} s")
+        t0 = _phase("step26_reports", t0)
+    finally:
+        tmp.cleanup()
+    err1 = _require_checks(acc["checks1"], "step 26")
+    require(not acc["checks2"], "no K2 launch in step 26")
+    total1 = _kernel_by_shape(kw, "step26", "phase", acc["firsts1"], acc["counts1"])
+    _phase("step26_kernel_timing", t0)
     return path_numbers(sum(acc["counts1"].values()), err1, total1, 1)
 
 
@@ -4810,7 +5272,12 @@ def main() -> int:
         k1_mamba, k2_mamba = mamba_train_phase(kw, card)
         k1_export = export_phase(kw, card, rife_npz)
         k1_scaleout, k2_scaleout = scaleout_phase(kw, card)
-        k1_study = blind_study_phase(kw, card, Path(ingest_tmp.name) / "data")
+        k1_study, study_tmp = blind_study_phase(kw, card, Path(ingest_tmp.name) / "data")
+        try:
+            k1_step26 = study_slice_phase(kw, card, vfi, rife_npz, gate_json,
+                                          Path(ingest_tmp.name), Path(study_tmp.name))
+        finally:
+            study_tmp.cleanup()
     finally:
         ingest_tmp.cleanup()
     print(f"wall {time.perf_counter() - wall0:.2f} s")
@@ -4821,7 +5288,7 @@ def main() -> int:
                                        k1_stream_adaptive, k1_safa, k1_safa_train, k1_evaluation,
                                        k1_bench, k1_sweep, k1_triplet, k1_ingest, k1_data,
                                        k1_calibration, k1_mamba, k1_export, k1_scaleout,
-                                       k1_study]),
+                                       k1_study, k1_step26]),
         kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train, k2_data, k2_mamba,
                                             k2_scaleout])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

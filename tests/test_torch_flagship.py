@@ -104,9 +104,10 @@ def test_history_ring_shifts():
 
 def test_port_imports_no_jax_cv2_or_reference():
     """Importing every module of the port (the trainer, its CLI, the clip
-    renderer, the calibrations, the scale-out and the blind study's CLIs
-    included), and chip_smoke.py, pulls in no jax, no cv2 and nothing of
-    vfisr_tpu."""
+    renderer, the calibrations, the scale-out, the blind study's CLIs, the
+    JPEG codec, the study servers and the study and report scripts
+    included), and chip_smoke.py, pulls in no jax, no cv2, no PIL and
+    nothing of vfisr_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vfisr_tpu_torch\n"
@@ -116,10 +117,13 @@ def test_port_imports_no_jax_cv2_or_reference():
         "          'make_synthetic_clip', 'calibrate_router', 'calibrate_lpips',\n"
         "          'parallel.mesh', 'parallel.launch', 'parallel.dryrun',\n"
         "          'gui.benchmark_proper', 'gui.benchmark_all', 'gui.generate_clips',\n"
-        "          'prepare_blind_study'):\n"
+        "          'prepare_blind_study', 'data.jpeg', 'gui.web_app', 'gui.video_blind_study',\n"
+        "          'gui.blind_study_app', 'lpips_ordering_study', 'check_expert_downscale',\n"
+        "          'generate_comprehensive_report', 'generate_report_figures'):\n"
         "    importlib.import_module('vfisr_tpu_torch.' + m)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'vfisr_tpu', 'flax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'vfisr_tpu', 'flax', 'PIL'))\n"
         "print(len([m for m in sys.modules if m.startswith('vfisr_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

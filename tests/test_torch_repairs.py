@@ -130,6 +130,32 @@ def _blind_study_cli(module):
     return entry
 
 
+def _web_app(tmp):
+    from vfisr_tpu_torch.gui.web_app import build
+
+    _, server = build(["--data-dir", str(tmp), "--out-dir", str(tmp / "out"), "--host",
+                       "127.0.0.1", "--port", "0", "--device", "cpu"])
+    server.server_close()
+
+
+def _blind_study_app(tmp):
+    from vfisr_tpu_torch.gui.blind_study_app import main
+
+    main([str(tmp), "--device", "cpu"])  # SystemExit: no display (or no tkinter)
+
+
+def _lpips_ordering_study(tmp):
+    from vfisr_tpu_torch.lpips_ordering_study import main
+
+    main(["--hard-clip", str(tmp / "none.y4m"), "--device", "cpu"])  # SystemExit: no clip
+
+
+def _check_expert_downscale(tmp):
+    from vfisr_tpu_torch.check_expert_downscale import main
+
+    assert main(["--clips", str(tmp / "none.y4m"), "--device", "cpu"]) == 1  # no pairs
+
+
 def _dryrun_rank(tmp):
     """A rank of the dry run (the data-parallel step of an f32 RIFE), here
     the one rank of a gloo group of one."""
@@ -149,12 +175,16 @@ def _dryrun_rank(tmp):
                                    _calibrate_router_cli, _calibrate_lpips_cli, _compile_aot_cli,
                                    _blind_study_cli("benchmark_proper"),
                                    _blind_study_cli("benchmark_all"),
-                                   _blind_study_cli("generate_clips"), _dryrun_rank])
+                                   _blind_study_cli("generate_clips"), _dryrun_rank,
+                                   _web_app, _blind_study_app, _lpips_ordering_study,
+                                   _check_expert_downscale])
 def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
     """The sweep, the triplet benchmark, the interval extraction (Farneback's
     f32 convolutions), their CLIs, the held-out evaluation and gate CLIs,
-    the export CLI, the blind study's CLIs (RIFE and the flow model) and a
-    rank of the data-parallel dry run turn TF32 off before any work (here
+    the export CLI, the blind study's CLIs (RIFE and the flow model), a
+    rank of the data-parallel dry run, the study servers' renders (web_app
+    and the Tk client) and the LPIPS and expert-downscale studies turn TF32
+    off before any work (here
     the harnesses stop early: no interval, no clip; the gate has no
     checkpoint to score; the calibrations refuse to write over the shipped
     gate and heads; the export has no artifact to run)."""
@@ -169,8 +199,10 @@ def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
 # the port's device paths: the streaming pipeline and its CLIs, the benches,
 # the harnesses and their CLIs, the trainer (with its VFIMamba path), the
 # interval extraction and the held-out evaluation and gate CLIs, the clip
-# renderer and the calibrations, the export and its CLI, the scale-out and
-# the blind study's clip generation
+# renderer and the calibrations, the export and its CLI, the scale-out, the
+# blind study's clip generation, the JPEG codec, the study servers and the
+# study scripts (and the host-only report, whose figures import matplotlib
+# on call)
 DEVICE_PATHS = ("pipeline", "pipeline.flagship", "pipeline.streaming", "process",
                 "batch_process", "bench", "benchmark", "run_experiments", "train.__main__",
                 "harness", "harness.experiments", "harness.device_sweep", "harness.triplet",
@@ -180,7 +212,9 @@ DEVICE_PATHS = ("pipeline", "pipeline.flagship", "pipeline.streaming", "process"
                 "models.sota.vfimamba", "utils.aot", "compile_aot", "parallel",
                 "parallel.mesh", "parallel.launch", "parallel.dryrun", "gui",
                 "gui.benchmark_proper", "gui.benchmark_all", "gui.generate_clips",
-                "prepare_blind_study")
+                "prepare_blind_study", "data.jpeg", "gui.web_app", "gui.video_blind_study",
+                "gui.blind_study_app", "lpips_ordering_study", "check_expert_downscale",
+                "generate_comprehensive_report")
 
 
 def test_device_paths_import_no_scipy_pandas_matplotlib_or_yaml():

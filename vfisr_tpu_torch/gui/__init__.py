@@ -1,1 +1,1 @@
-"""The blind study's clip generation (port of the device paths of ``gui/``)."""
+"""The blind study (port of ``gui/``): its clip generation and its servers."""

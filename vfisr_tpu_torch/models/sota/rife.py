@@ -33,6 +33,9 @@ class RIFEConfig:
     scales: Tuple[int, ...] = (8, 4, 2, 1)
     channels: Tuple[int, ...] = (256, 160, 112, 80)
     num_convs: int = 8
+    # the residual head on the fused frame (``RefineNet``); off in every
+    # shipped checkpoint
+    refine: bool = False
     # warp block inputs at each level's own resolution, never finer than
     # min_warp_scale; the final fusion warps run at full resolution
     warp_at_level: bool = True
@@ -124,6 +127,30 @@ class IFBlock(nn.Module):
         return _resize_bilinear(out, x.shape[-2:])
 
 
+class RefineNet(nn.Module):
+    """Residual head sharpening the fused frame, at half resolution: a 2x2
+    mean-pool entry (the sum in the input's dtype, then the scale, as the
+    reference's ``reduce_window``), two 3x3 convs, and a zero-init 4x4
+    stride-2 transpose conv back to full resolution. Returns
+    tanh(out) / 16, [N, 3, H, W]; a fresh head adds zero."""
+
+    def __init__(self, in_ch: int = 11, c: int = 40):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_ch, c, 3, padding=1)
+        self.Conv_1 = nn.Conv2d(c, c, 3, padding=1)
+        # Flax ConvTranspose(3, (4,4), strides=2, padding="SAME") pads the
+        # dilated input (2, 2): torch padding 1, output 2H
+        self.ConvTranspose_0 = nn.ConvTranspose2d(c, 3, 4, stride=2, padding=1)
+        nn.init.zeros_(self.ConvTranspose_0.weight)
+        nn.init.zeros_(self.ConvTranspose_0.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-2] // 2 * 2, x.shape[-1] // 2 * 2
+        xh = _halve(x[..., :h, :w])
+        out = self.ConvTranspose_0(_lrelu(self.Conv_1(_lrelu(self.Conv_0(xh)))))
+        return torch.tanh(out) * (1.0 / 16.0)
+
+
 class IFNet(nn.Module):
     """Coarse-to-fine intermediate flow network."""
 
@@ -132,6 +159,8 @@ class IFNet(nn.Module):
         self.config = config
         for i, c in enumerate(config.channels):
             self.add_module(f"block{i}", IFBlock(12, c, config.num_convs))
+        if config.refine:
+            self.refine = RefineNet()
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor, timestep,
                 scales: Optional[Tuple[int, ...]] = None):
@@ -192,7 +221,11 @@ class IFNet(nn.Module):
                             cfg.final_warp_radius, cfg.warp_dtype)
         warped0, warped1 = warped[:n], warped[n:]
         m = torch.sigmoid(mask)
-        merged = torch.clamp(warped0 * m + warped1 * (1.0 - m), 0.0, 1.0)
+        merged = warped0 * m + warped1 * (1.0 - m)
+        if cfg.refine:
+            t_map = t_scalar.expand(n, 1, h, w)
+            merged = merged + self.refine(torch.cat([merged, warped0, warped1, m, t_map], dim=1))
+        merged = torch.clamp(merged, 0.0, 1.0)
 
         def nhwc(v):
             return v.to(out_dtype).permute(0, 2, 3, 1)

@@ -4,7 +4,8 @@
 Per frame pair, all on the device: router analysis on a 480x270 gray pair
 (Farneback motion, SSIM scene-cut gate confirmed by a flow-compensated
 warp, Laplacian particle score, HUD temporal-variance ring with
-morphology), RIFE in its deploy config with shared-flow timesteps, the
+morphology), RIFE in its deploy config (shared-flow timesteps, or one IFNet
+pass per timestep with ``shared_flow=False``), the
 branchless scene-cut and HUD composites, and Lanczos4 SR to the output size
 as uint8.
 
@@ -53,6 +54,10 @@ class FlagshipConfig:
     hud_agree_eps: float = 3.0
     motion_threshold_high: float = 25.0  # route-to-VFIMamba signal
     sr_filter: str = "lanczos4"
+    # one IFNet trunk pass at the anchor timestep, the others from its
+    # rescaled flow (``shared_flow_apply``); False runs the IFNet per
+    # timestep, all of them in one call
+    shared_flow: bool = True
 
 
 def analyze_small(f0, f1, history, history_count, cfg: FlagshipConfig) -> dict:
@@ -125,8 +130,15 @@ def make_flagship_step(module: IFNet, cfg: FlagshipConfig = FlagshipConfig()):
 
         x0p, _ = pad_to_multiple(x0, 32)
         x1p, _ = pad_to_multiple(x1, 32)
-        # one IFNet trunk pass, every timestep from its flow
-        mids = unpad(shared_flow_apply(module, x0p, x1p, ts_tuple), h, w)  # [P*T,H,W,3]
+        if cfg.shared_flow:
+            # one IFNet trunk pass, every timestep from its flow
+            merged = shared_flow_apply(module, x0p, x1p, ts_tuple)
+        else:
+            # each pair repeated T times, the timestamps tiled pair-major
+            ts = torch.tensor(ts_tuple, dtype=x0.dtype, device=x0.device).repeat(p)
+            merged = module(x0p.repeat_interleave(t_count, 0), x1p.repeat_interleave(t_count, 0),
+                            ts)[0]
+        mids = unpad(merged, h, w)  # [P*T,H,W,3]
 
         # branchless scene-cut repeat of x0
         scene = sig["is_scene_change"].repeat_interleave(t_count)
