@@ -6,7 +6,8 @@ Needs a CUDA card, nvcc (CUDA_HOME or PATH) and the repository's
 vfisr_tpu_torch/ and weights/ beside this file; no network. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the windowed-warp kernels (csrc/warp_windowed.cu) with nvcc;
+2. builds the windowed-warp kernels (csrc/warp_windowed.cu, and
+   csrc/warp_tiled.cu for step 27) with nvcc, one process per source;
 3. loads FlagshipVFI(device="cuda") with weights/rife.npz (full-width RIFE,
    bf16 deploy config) and weights/router_gate.json;
 4. drives the flagship fused step (fused_stream_step) over a stream of
@@ -398,6 +399,27 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    (g) ``generate_comprehensive_report`` and ``generate_report_figures`` on
    step 21's experiment_results.json (without matplotlib the figures script
    must say so by name; its table is made then from the same rankings).
+27. the last slice: (a) builds csrc/warp_tiled.cu (K1 and K2 at any output
+   tile) and holds it against the plain twin at the same tile, origins
+   included, at every tile and shape the profile tools launch off 32x256
+   (profile_components' 16x256 at r = 6, 4, 2 on [6,1088,1920,3] f32;
+   profile_warp_tiles' seven tiles at r = (3,4) bf16 and its two half-size
+   ones at (2,2)), at a constant border, a flow past the window, 176
+   channels and a t per image, K2 at the reference's test tile 8x128, r = 6
+   on 1080p frames (both borders), and at 32x256 bit for bit against the
+   tile kernels; then counts the tiled K2 over those two 1080p launches;
+   (b) runs the eight ``profile_*`` tools in process through their
+   ``main`` at their full case lists (TILE_REPS timed calls after
+   TILE_WARMUP), every JSON line parsed with a finite number in each case,
+   every K1 launch counted by shape and tile and those of each tool's first
+   case held against the twin, with ``window_origins`` raising; (c)
+   ``verify_setup --device cuda`` (exit 0), ``probe_system --json`` (the
+   card's name and power limit), ``graft_entry.entry()`` exported and run,
+   the sharded flagship check over a gloo pair of ranks on the card,
+   ``generate_figures`` on step 21's results (without matplotlib it exits
+   non-zero naming it) and ``evaluate_quality`` on JPEGs ``data/jpeg.py``
+   wrote; the three CLIs and the two ranks are child processes started
+   with the step, and the per-shape timing comes last.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
@@ -407,9 +429,11 @@ steps, the evaluation, the bench, the sweep, the triplet benchmark, the
 counted extraction of the ingest, step 22's trainer, evaluation and gate
 runs, step 23's calibration and gate loads, step 24's VFIMamba train steps
 and trainer runs, the exported program's runs, step 25's compared
-data-parallel steps and the blind study's CLIs, step 26's parts; K2: the RIFE and the SAFA
+data-parallel steps and the blind study's CLIs, step 26's parts, step 27's
+profile tools at 32x256; K2: the RIFE and the SAFA
 train steps, step 22's trainer runs, step 24's VFIMamba steps and step 25's
-compared steps)
+compared steps; warp_tiled: step 27's profile tools at other tiles;
+warp_tiled_grad: step 27's counted 8x128 launches)
 and the device time, bound, plain-twin and grid_sample time of exactly
 those launches (a stream's and the bench's launches at their shapes' times
 from steps 7 and 9). The last line is {"ok": true, "device": {...}}.
@@ -419,6 +443,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -876,11 +901,12 @@ def path_numbers(launches: int, err: float, per_unit: dict, units: int) -> dict:
                 **{k: per_unit[k] * units for k in ("kernel", "plain", "bound", "library")})
 
 
-def kernel_entry(name: str, paths: list) -> dict:
+def kernel_entry(name: str, paths: list,
+                 source: str = "vfisr_tpu_torch/csrc/warp_windowed.cu") -> dict:
     """One kernel's object of the kernels JSON, summed over the paths that
     launch it."""
     by = {p["by"] for p in paths}
-    return {"name": name, "route": "cuda", "source": "vfisr_tpu_torch/csrc/warp_windowed.cu",
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": "vfisr_tpu/ops/pallas/warp.py:348",
             "launches": sum(p["launches"] for p in paths),
             "max_abs_err": max(p["err"] for p in paths),
@@ -5080,6 +5106,450 @@ def study_slice_phase(kw, card: str, vfi, rife_npz: Path, gate_json: Path, inges
     return path_numbers(sum(acc["counts1"].values()), err1, total1, 1)
 
 
+# step 27: the last slice of the port. (a) csrc/warp_tiled.cu (K1 and K2 at
+# any output tile) against its plain twin at every tile and shape the
+# profile tools launch, K2 at the reference's test tile, a constant border,
+# a flow past the window, 176 channels, a t per image, and at 32x256 against
+# the tile kernels; (b) the eight profile tools in process at their full
+# case lists, TILE_REPS timed calls after TILE_WARMUP; (c) verify_setup,
+# probe_system, graft_entry (entry() and the sharded flagship check over a
+# gloo pair on the one card), generate_figures on step 21's results and
+# evaluate_quality on JPEG frames written by data/jpeg.py
+TILE_REPS, TILE_WARMUP = 2, 1  # the tools' timed calls per case (20 and 3 by default)
+PROFILE_TOOLS = ("profile_flagship", "profile_pairs", "profile_components", "profile_adaptive",
+                 "profile_conv", "profile_resize", "profile_radius", "profile_warp_tiles")
+# the tools' K1 at tiles other than 32x256: profile_components' three 16x256
+# cases and profile_warp_tiles' eight
+TILED_LAUNCH_CASES = 3 + 8
+TILED_GRAD_TILE, TILED_GRAD_R = (8, 128), 6  # tests/test_pallas_warp.py:101-103
+STEP27_GRAPH = 5  # launches per captured graph of step 27's per-shape timing
+
+
+def _tile_key(a: dict) -> tuple:
+    return shape_key(a) + (tuple(a["tile"]),)
+
+
+def check_tiled(kw, label: str, a: dict) -> float:
+    """warp_tiled.cu's K1 (through the wrapper at a's tile) against the
+    plain twin at that tile, and its origins against window_origins;
+    returns the error."""
+    tile = a["tile"]
+    args = (a["img"], a["flow"], a["t"], a["r"], a["border"], a["compute_dtype"])
+    before = kw.tiled_launches
+    out = kw.warp_windowed(*args, tile=tile)
+    ref = kw.warp_windowed_plain(*args, tile=tile)
+    torch.cuda.synchronize()
+    require(kw.tiled_launches == before + (tuple(tile) != kw.TILE), f"{label}: the tiled kernel ran")
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = kernel_tolerance(ref, a["compute_dtype"])
+    ry, rx = (a["r"], a["r"]) if isinstance(a["r"], int) else a["r"]
+    t_arr = torch.as_tensor(a["t"], dtype=torch.float32, device=a["flow"].device)
+    t_arr = t_arr.reshape(-1).expand(a["flow"].shape[0]).contiguous()
+    got = kw.kernel_origins(a["flow"], a["t"], a["r"], a["compute_dtype"], tile)
+    want = ORIGIN_TABLE(a["flow"], t_arr, ry, rx, a["compute_dtype"] == torch.bfloat16, tile)
+    same = got.shape == want.shape and torch.equal(got, want)
+    print(f"tiled kernel vs plain {label}: {_label(a)} tile {tuple(tile)}: max_abs_err {err:.3e} "
+          f"tol {tol:.3e}, origins {'equal' if same else 'DIFFER'}")
+    require(err <= tol and same, f"tiled kernel vs plain {label}")
+    return err
+
+
+def check_tiled_grad(kw, label: str, a: dict) -> float:
+    """warp_tiled.cu's K2 at a's tile against the plain twin (grad_flow and
+    cg), within 1e-5 (f32 windows) or 2/255 (bf16) of the largest |cg|."""
+    tile = a["tile"]
+    args = (a["img"], a["flow"], a["t"], a["ct"], a["r"], a["border"], a["compute_dtype"])
+    before = kw.tiled_grad_launches
+    gflow, cg = kw.warp_windowed_grad(*args, tile=tile)
+    ref_gflow, ref_cg = kw.warp_windowed_grad_plain(*args, tile=tile)
+    torch.cuda.synchronize()
+    require(kw.tiled_grad_launches == before + 1, f"{label}: the tiled grad kernel ran")
+    err = max((gflow.float() - ref_gflow.float()).abs().max().item(),
+              (cg - ref_cg).abs().max().item())
+    scale = ref_cg.abs().max().item()
+    tol = (2.0 / 255.0 if a["compute_dtype"] == torch.bfloat16 else 1e-5) * scale
+    require(scale > 0, f"{label} has a gradient to check")
+    print(f"tiled grad kernel vs plain {label}: {_label(a)} tile {tuple(tile)}: max_abs_err "
+          f"{err:.3e} tol {tol:.3e}")
+    require(err <= tol, f"tiled grad kernel vs plain {label}")
+    return err
+
+
+def tiled_cases(device) -> list:
+    """The tiled kernel's cases: every (shape, r, window dtype, tile) the
+    profile tools launch at a tile other than 32x256 (their inputs' kind:
+    random +-4 px flows, the smooth gaming flow), and the edges: a
+    constant border, a flow past the window, 176 channels, a t per image."""
+    from vfisr_tpu_torch.profile_warp_tiles import gaming_flow
+
+    gen = torch.Generator(device="cpu").manual_seed(27)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def case(name, shape, cd, r, tile, flow=None, t=1.0, border="replicate", amp=4.0):
+        n, h, w, c = shape
+        img = torch.rand(shape, generator=gen).to(device)
+        if flow is None:
+            flow = (torch.rand((n, h, w, 2), generator=gen) - 0.5) * (2 * amp)
+        return dict(name=name, img=img, flow=flow.to(device), t=t, r=r, border=border,
+                    compute_dtype=cd, tile=tile,
+                    ct=torch.randn(shape, generator=gen).to(device))
+
+    full, half = (6, 1088, 1920, 3), (6, 544, 960, 3)
+    g_full = torch.from_numpy(gaming_flow(1088, 1920))[None].expand(6, -1, -1, -1).contiguous()
+    g_half = torch.from_numpy(gaming_flow(1088, 1920)[::2, ::2] / 2)[None]
+    g_half = g_half.expand(6, -1, -1, -1).contiguous()
+    cases = [case(f"components_r{r}_t16x256", full, f32, r, (16, 256)) for r in (6, 4, 2)]
+    cases += [case(f"warp_tiles_t{th}x{tw}", full, bf, (3, 4), (th, tw), flow=g_full)
+              for th, tw in ((40, 256), (40, 640), (104, 640), (104, 256), (40, 1920), (8, 640))]
+    cases += [case(f"warp_tiles_half_t{th}x{tw}", half, bf, (2, 2), (th, tw), flow=g_half)
+              for th, tw in ((40, 960), (104, 960))]
+    yy, xx = torch.meshgrid(torch.arange(544.0), torch.arange(960.0), indexing="ij")
+    smooth = torch.stack([torch.sin(xx / 17.0 + yy / 23.0), torch.cos(yy / 9.0)], -1)[None]
+    cases += [
+        case("constant_border_bf16_t40x256", (2, 544, 960, 3), bf, (2, 2), (40, 256),
+             flow=(12.0 * smooth + 0.5 * torch.randn((2, 544, 960, 2), generator=gen)),
+             border="constant"),
+        case("constant_border_f32_t8x640", (2, 544, 960, 3), f32, 8, (8, 640),
+             flow=(12.0 * smooth + 0.5 * torch.randn((2, 544, 960, 2), generator=gen)),
+             border="constant"),
+        case("past_window_t40x256", (2, 544, 960, 3), bf, (2, 2), (40, 256),
+             flow=(25.0 * smooth + 4.0 * torch.randn((2, 544, 960, 2), generator=gen))),
+        case("c176_t16x256", (3, 114, 144, 176), f32, 8, (16, 256), amp=6.0),
+        case("per_image_t_t40x256", (3, 270, 480, 3), f32, (3, 4), (40, 256),
+             t=torch.tensor([0.25, 0.5, 0.75], device=device)),
+    ]
+    return cases
+
+
+def _tool_wrapper(kw, checks: list, firsts: dict, counts: dict, live):
+    """K1's wrapper for the profile tools (which pass ``tile``): counts
+    every launch by (shape, tile), keeps a clone of each key's first launch
+    for the per-shape timing, and while ``live()`` (the tool's first case)
+    holds the launch against its twin and its origins against
+    window_origins."""
+    real = kw.warp_windowed
+
+    def wrapper(img, flow, t=1.0, r=8, border="replicate", compute_dtype=torch.float32,
+                tile=kw.TILE):
+        out = real(img, flow, t, r, border, compute_dtype, tile)
+        a = dict(img=img, flow=flow, t=t, r=r, border=border, compute_dtype=compute_dtype,
+                 tile=tuple(tile))
+        key = _tile_key(a)
+        if key not in firsts:
+            firsts[key] = dict(a, img=img.clone(), flow=flow.clone(),
+                               t=t.clone() if torch.is_tensor(t) else t)
+        counts[key] = counts.get(key, 0) + 1
+        if live():
+            ref = _twin(kw, kw.warp_windowed_plain, img, flow, t, r, border, compute_dtype,
+                        "interp", tile)
+            base = 2.0 / 255.0 if compute_dtype == torch.bfloat16 else 1e-5
+            ry, rx = (r, r) if isinstance(r, int) else r
+            t_arr = torch.as_tensor(t, dtype=torch.float32, device=flow.device)
+            t_arr = t_arr.reshape(-1).expand(flow.shape[0]).contiguous()
+            got = kw.kernel_origins(flow, t, r, compute_dtype, tile)
+            want = ORIGIN_TABLE(flow, t_arr, ry, rx, compute_dtype == torch.bfloat16, tuple(tile))
+            differ = ((got != want).any() if got.shape == want.shape
+                      else torch.ones((), dtype=torch.bool, device=flow.device))
+            checks.append(((out.float() - ref.float()).abs().max(),
+                           base * torch.clamp(ref.float().abs().max(), min=1.0), differ,
+                           tuple(tile) != kw.TILE))
+        return out
+
+    return wrapper
+
+
+def time_step27_launch(kw, a: dict, grad: bool = False) -> dict:
+    """One launch shape's times, lighter than ``time_launch`` (step 27 has
+    ~100 shapes): the kernel alone by CUDA-graph replay of STEP27_GRAPH
+    launches, the plain twin once and grid_sample (K2: its grid gradient)
+    three times after a warm-up, and the bound."""
+    img, flow, r, cd, tile = a["img"], a["flow"], a["r"], a["compute_dtype"], a["tile"]
+    graph = torch.cuda.CUDAGraph()
+    if grad:
+        ct = a["ct"].contiguous()
+        gflow = torch.empty_like(flow)
+        cg = torch.empty(flow.shape, dtype=torch.float32, device=flow.device)
+        kw.launch_grad(img, flow, a["t"], ct, gflow, cg, r, a["border"], cd, tile)  # warm-up
+        with torch.cuda.graph(graph):
+            for _ in range(STEP27_GRAPH):
+                kw.launch_grad(img, flow, a["t"], ct, gflow, cg, r, a["border"], cd, tile)
+        plain = lambda: _twin(kw, kw.warp_windowed_grad_plain, img, flow, a["t"], ct, r,  # noqa: E731
+                              a["border"], cd, tile)
+        bound, by = grad_launch_bound(a)
+        library = grid_sample_grad_call(a)
+    else:
+        out = torch.empty_like(img)
+        kw.launch(img, flow, a["t"], out, r, a["border"], cd, tile)  # warm-up
+        with torch.cuda.graph(graph):
+            for _ in range(STEP27_GRAPH):
+                kw.launch(img, flow, a["t"], out, r, a["border"], cd, tile)
+        plain = lambda: _twin(kw, kw.warp_windowed_plain, img, flow, a["t"], r,  # noqa: E731
+                              a["border"], cd, "interp", tile)
+        bound, by = launch_bound(a)
+        library = grid_sample_call(a)
+    return dict(kernel=time_ms(graph.replay, 3, warmup=1) / STEP27_GRAPH, bound=bound, by=by,
+                plain=time_ms(plain, 1, warmup=0), library=time_ms(library, 3, warmup=1))
+
+
+def step27_by_shape(kw, label: str, firsts: dict, counts: dict, grad: bool = False) -> dict:
+    """Per-shape lines of step 27's counted launches and their totals."""
+    total = dict(kernel=0.0, bound=0.0, plain=0.0, library=0.0)
+    bys = set()
+    for key, n in counts.items():
+        v = time_step27_launch(kw, firsts[key], grad)
+        bys.add(v["by"])
+        for f in total:
+            total[f] += n * v[f]
+        print(f"{label} launch shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} "
+              f"r={key[3]} {key[4]} tile {key[5]} x{n}: kernel {v['kernel']:.4f} ms, bound "
+              f"{v['bound']:.4f} ms ({v['by']}), plain {v['plain']:.4f} ms, "
+              f"grid_sample{' grad' if grad else ''} {v['library']:.4f} ms")
+    total["by"] = "bytes" if bys <= {"bytes"} else "operations"
+    print(f"{label}: {sum(counts.values())} launches in {len(counts)} shapes, "
+          + ", ".join(f"{f} {total[f]:.4f} ms" for f in ("kernel", "bound", "plain", "library")))
+    return total
+
+
+class _LineCount(io.StringIO):
+    """A tool's captured standard output; ``lines`` counts finished lines
+    (its cases: one JSON line each)."""
+
+    @property
+    def lines(self) -> int:
+        return self.getvalue().count("\n")
+
+
+def _finite_numbers(obj) -> list:
+    if isinstance(obj, dict):
+        return [v for x in obj.values() for v in _finite_numbers(x)]
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return [obj] if math.isfinite(obj) else [float("nan")]
+    return []
+
+
+def last_slice_phase(kw, card: str, ingest_root: Path) -> tuple:
+    """Step 27 of the module docstring. Returns (K1's numbers over the
+    tools' launches at 32x256, the tiled K1's over theirs at other tiles,
+    the tiled K2's over its counted run)."""
+    from vfisr_tpu_torch import graft_entry
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    # (c)'s child processes start first (each takes seconds to reach the
+    # card) and run beside (a) and (b): the three CLIs, and the sharded
+    # flagship check's two gloo ranks from a thread of this process
+    results = ingest_root / "full" / "experiment_results.json"
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_step27_")
+    root = Path(tmp.name)
+    clis = {name: subprocess.Popen([sys.executable, "-m", f"vfisr_tpu_torch.{name}", *args],
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                   cwd=ROOT)
+            for name, args in (("verify_setup", ["--device", "cuda"]),
+                               ("probe_system", ["--json"]),
+                               ("generate_figures", ["--results", str(results), "--output-dir",
+                                                     str(root / "figs")]))}
+    pool = ThreadPoolExecutor(1)
+    ranks = pool.submit(graft_entry.flagship_ranks, 2, "cuda", "gloo", SCALEOUT_TIMEOUT)
+    try:
+        return _last_slice_body(kw, card, dev, t0, root, clis, ranks)
+    finally:
+        pool.shutdown(wait=True)
+        for p in clis.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        tmp.cleanup()
+
+
+def _last_slice_body(kw, card: str, dev, t0: float, root: Path, clis: dict, ranks) -> tuple:
+    """Step 27's parts (a)-(c) in this process, with (c)'s child processes
+    already started (``last_slice_phase``)."""
+    import contextlib as cl
+    import importlib
+
+    from vfisr_tpu_torch import evaluate_quality, graft_entry
+    from vfisr_tpu_torch.data import jpeg
+    from vfisr_tpu_torch.evaluation import QualityEvaluator
+
+    # (a) the tiled kernel against its twin, and at 32x256 against the tile kernels
+    errs1, errs2 = [], []
+    cases = tiled_cases(dev)
+    for a in cases:
+        errs1.append(check_tiled(kw, a["name"], a))
+        if a["name"] in ("constant_border_f32_t8x640", "c176_t16x256", "per_image_t_t40x256"):
+            errs2.append(check_tiled_grad(kw, a["name"], a))
+    gen = torch.Generator(device="cpu").manual_seed(28)
+    grad_cases_ = []
+    for border in ("replicate", "constant"):
+        yy, xx = torch.meshgrid(torch.arange(1080.0), torch.arange(1920.0), indexing="ij")
+        flow = torch.stack([4.0 * torch.sin(xx / 17.0 + yy / 23.0), 2.0 * torch.cos(yy / 9.0)], -1)
+        flow = (flow[None] + torch.randn((1, 1080, 1920, 2), generator=gen)).to(dev)
+        grad_cases_.append(dict(name=f"k2_t8x128_r6_1080p_{border}", border=border, flow=flow,
+                                img=torch.rand((1, 1080, 1920, 3), generator=gen).to(dev),
+                                ct=torch.randn((1, 1080, 1920, 3), generator=gen).to(dev),
+                                t=0.7, r=TILED_GRAD_R, compute_dtype=torch.float32,
+                                tile=TILED_GRAD_TILE))
+    for a in grad_cases_:
+        errs2.append(check_tiled_grad(kw, a["name"], a))
+        errs1.append(check_tiled(kw, a["name"], a))
+    for cd in (torch.float32, torch.bfloat16):
+        a = cases[-3]  # the flow past the window, [2,544,960,3]
+        img, flow = a["img"].to(cd), a["flow"]
+        ct = a["ct"].to(cd)
+        out, tiled = torch.empty_like(img), torch.empty_like(img)
+        kw.launch(img, flow, 1.0, out, (2, 2), "replicate", cd)
+        kw.launch_tiled(img, flow, 1.0, tiled, (2, 2), "replicate", cd, kw.TILE)
+        g1, c1, g2, c2 = (torch.empty(flow.shape, dtype=torch.float32, device=dev)
+                          for _ in range(4))
+        kw.launch_grad(img, flow, 1.0, ct, g1, c1, (2, 2), "replicate", cd)
+        kw.launch_grad_tiled(img, flow, 1.0, ct, g2, c2, (2, 2), "replicate", cd, kw.TILE)
+        torch.cuda.synchronize()
+        same = torch.equal(out, tiled) and torch.equal(c1, c2) and torch.equal(g1, g2)
+        print(f"tiled kernel at 32x256 vs the tile kernels, {str(cd)[6:]} image: K1 "
+              f"{'equal' if torch.equal(out, tiled) else 'DIFFER'}, K2 "
+              f"{'equal' if torch.equal(c1, c2) and torch.equal(g1, g2) else 'DIFFER'}")
+        require(same, f"tiled kernel at 32x256 equals the tile kernels ({cd})")
+    t0 = _phase("step27_tiled_checks", t0)
+
+    # the tiled K2's counted run: the reference's own K2 case (tile 8x128,
+    # r = 6; tests/test_pallas_warp.py:101-103) on the 1080p frames above
+    firsts2, counts2 = {}, {}
+    with origin_table_raises(kw):
+        kw.grad_launches = kw.tiled_grad_launches = 0
+        for a in grad_cases_:
+            kw.warp_windowed_grad(a["img"], a["flow"], a["t"], a["ct"], a["r"], a["border"],
+                                  a["compute_dtype"], a["tile"])
+            key = _tile_key(a)
+            firsts2.setdefault(key, a)
+            counts2[key] = counts2.get(key, 0) + 1
+        torch.cuda.synchronize()
+        k2_tiled = kw.tiled_grad_launches
+    require(k2_tiled == len(grad_cases_) and kw.grad_launches == k2_tiled,
+            f"{k2_tiled} tiled K2 launches")
+
+    # (b) the eight profile tools in process
+    checks, firsts, counts = [], {}, {}
+    tool_k1 = tool_tiled = 0
+    real = kw.warp_windowed
+    for name in PROFILE_TOOLS:
+        tool = importlib.import_module(f"vfisr_tpu_torch.{name}")
+        buf = _LineCount()
+        kw.warp_windowed = _tool_wrapper(kw, checks, firsts, counts, lambda: buf.lines == 0)
+        start = time.perf_counter()
+        n_checked = len(checks)
+        try:
+            with origin_table_raises(kw), cl.redirect_stdout(buf):
+                kw.launches = kw.tiled_launches = 0
+                rc = tool.main(["--reps", str(TILE_REPS), "--warmup", str(TILE_WARMUP)])
+                torch.cuda.synchronize()
+                k1, tiled = kw.launches, kw.tiled_launches
+        finally:
+            kw.warp_windowed = real
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        nums = [v for ln in lines for v in _finite_numbers(
+            {k: v for k, v in ln.items() if k not in ("launches",)})]
+        require(rc == 0 and lines and all(_finite_numbers(ln) for ln in lines)
+                and all(math.isfinite(v) for v in nums)
+                and all(ln["device"] == torch.cuda.get_device_name(0) for ln in lines),
+                f"{name}: a finite number in every case's JSON line")
+        for ln in lines:
+            print(f"{name}: {json.dumps(ln)}")
+        print(f"{name}: {len(lines)} cases in {time.perf_counter() - start:.3f} s, K1 {k1} "
+              f"launches ({tiled} in warp_tiled), {len(checks) - n_checked} of its first case's "
+              f"held against the twin; {card}")
+        require(k1 == 0 or len(checks) > n_checked, f"{name}: its first case's K1 checked")
+        tool_k1 += k1 - tiled
+        tool_tiled += tiled
+    require(tool_tiled == TILED_LAUNCH_CASES * (TILE_REPS + TILE_WARMUP),
+            f"{tool_tiled} tiled K1 launches in the tools")
+    err, tol, differ, is_tiled = zip(*checks)
+    err, tol, differ = torch.stack(err), torch.stack(tol), torch.stack(differ)
+    require(bool((err <= tol).all()) and not bool(differ.any()),
+            "step 27: every checked tool launch within its tolerance, origins equal")
+    tiled_err = max([e.item() for e, t in zip(err, is_tiled) if t] + errs1)
+    whole_err = max([e.item() for e, t in zip(err, is_tiled) if not t] or [0.0])
+    print(f"step 27 tools: {len(checks)} K1 launches held against the twin ({sum(is_tiled)} "
+          f"tiled), max_abs_err whole-C {whole_err:.3e}, tiled {tiled_err:.3e}")
+    t0 = _phase("step27_profile_tools", t0)
+
+    # (c) the environment and entry files
+    start = time.perf_counter()
+    fn, example = graft_entry.entry("cuda")
+    kw.launches = 0
+    with torch.no_grad():
+        out = fn(*example)
+        torch.cuda.synchronize()
+        n_entry = kw.launches
+        plain = _with_twin(kw, lambda: fn(*example))
+    d = (out - plain).abs().max().item()
+    print(f"graft_entry.entry(): exported, run on the card: {tuple(out.shape)}, {n_entry} K1 "
+          f"launches, max abs diff from the plain twin's run {d:.3e} (tolerance 1e-3); "
+          f"{time.perf_counter() - start:.3f} s")
+    require(out.shape == (1, 256, 256, 3) and bool(torch.isfinite(out).all()) and d <= 1e-3,
+            "graft_entry.entry() on the card")
+    start = time.perf_counter()
+    frames = {"pred": [game_frame(i + 0.5, dev, 270, 480) for i in range(2)],
+              "gt": [game_frame(i + 0.4, dev, 270, 480) for i in range(2)]}
+    for name, fs in frames.items():
+        (root / name).mkdir()
+        for i, f in enumerate(fs):
+            (root / name / f"f_{i:04d}.jpg").write_bytes(jpeg.encode(f, 92, device="cuda"))
+    with cl.redirect_stdout(_LineCount()):
+        evaluate_quality.main(["--pred-dir", str(root / "pred"), "--gt-dir", str(root / "gt"),
+                               "--output", str(root / "q.json")])
+    got = json.loads((root / "q.json").read_text())
+    decoded = {n: [jpeg.decode((root / n / f"f_{i:04d}.jpg").read_bytes(), "cuda").cpu().numpy()
+                   for i in range(2)] for n in frames}
+    want = QualityEvaluator("cuda").evaluate(decoded["pred"], decoded["gt"])
+    print(f"evaluate_quality on data/jpeg.py's JPEGs: {got}; {time.perf_counter() - start:.3f} s")
+    require(got["frames"] == 2 and got["psnr"] == want.psnr and got["ssim"] == want.ssim,
+            "evaluate_quality on JPEG frames")
+    # the sharded check: its ranks started with the step; the one-process
+    # reference on the same pairs here
+    ref = graft_entry.flagship_run(*(torch.from_numpy(x) for x in graft_entry.flagship_pairs(2)),
+                                   "cuda")
+    sharded = graft_entry.check_sharded(ref, ranks.result(), "gloo on cuda, one card")
+    require(sharded["up_err"] <= 1, "the sharded flagship check")
+    outs = {name: p.communicate(timeout=300) + (p.returncode,) for name, p in clis.items()}
+    print(outs["verify_setup"][0].strip())
+    require(outs["verify_setup"][2] == 0, "verify_setup --device cuda exits 0")
+    report = json.loads(outs["probe_system"][0])
+    acc_info = report["accelerator"]
+    print(f"probe_system: {json.dumps(acc_info)}; score {report['compatibility_score']}")
+    require(outs["probe_system"][2] == 0
+            and acc_info["devices"][0]["kind"] == torch.cuda.get_device_name(0)
+            and acc_info["power_limit"] == card, "probe_system names the card and its power limit")
+    rc, err = outs["generate_figures"][2], outs["generate_figures"][1]
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    if has_mpl:
+        require(rc == 0 and any((root / "figs").iterdir()), f"generate_figures: rc {rc} {err[-300:]}")
+    else:
+        require(rc != 0 and "matplotlib" in err, f"generate_figures without matplotlib: rc {rc}")
+    print(f"generate_figures on step 21's results: rc {rc}"
+          + ("" if has_mpl else ", naming matplotlib, which is not installed here"))
+    t0 = _phase("step27_entry_files", t0)
+
+    # the per-shape device times, with no other process on the card
+    whole = {k: v for k, v in counts.items() if k[5] == kw.TILE}
+    tiled_counts = {k: v for k, v in counts.items() if k[5] != kw.TILE}
+    total_whole = step27_by_shape(kw, "step27 K1", firsts, whole)
+    total_tiled = step27_by_shape(kw, "step27 tiled K1", firsts, tiled_counts)
+    total2 = step27_by_shape(kw, "step27 tiled K2", firsts2, counts2, grad=True)
+    del firsts, cases
+    torch.cuda.empty_cache()
+    _phase("step27_kernel_timing", t0)
+    k1 = dict(launches=tool_k1, err=whole_err, **total_whole)
+    tiled1 = dict(launches=tool_tiled, err=tiled_err, **total_tiled)
+    tiled2 = dict(launches=k2_tiled, err=max(errs2), **total2)
+    return k1, tiled1, tiled2
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5106,7 +5576,12 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
-    kw.build()
+    # one nvcc per kernel source, started together
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        for build in [pool.submit(kw.build), pool.submit(kw.build_tiled)]:
+            build.result()
     t0 = _phase("build", t0)
 
     rife_npz, gate_json = ROOT / "weights" / "rife.npz", ROOT / "weights" / "router_gate.json"
@@ -5278,6 +5753,7 @@ def main() -> int:
                                           Path(ingest_tmp.name), Path(study_tmp.name))
         finally:
             study_tmp.cleanup()
+        k1_step27, k1_tiled, k2_tiled = last_slice_phase(kw, card, Path(ingest_tmp.name))
     finally:
         ingest_tmp.cleanup()
     print(f"wall {time.perf_counter() - wall0:.2f} s")
@@ -5288,9 +5764,11 @@ def main() -> int:
                                        k1_stream_adaptive, k1_safa, k1_safa_train, k1_evaluation,
                                        k1_bench, k1_sweep, k1_triplet, k1_ingest, k1_data,
                                        k1_calibration, k1_mamba, k1_export, k1_scaleout,
-                                       k1_study, k1_step26]),
+                                       k1_study, k1_step26, k1_step27]),
         kernel_entry("warp_windowed_grad", [k2_train, k2_safa_train, k2_data, k2_mamba,
-                                            k2_scaleout])]}))
+                                            k2_scaleout]),
+        kernel_entry("warp_tiled", [k1_tiled], "vfisr_tpu_torch/csrc/warp_tiled.cu"),
+        kernel_entry("warp_tiled_grad", [k2_tiled], "vfisr_tpu_torch/csrc/warp_tiled.cu")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

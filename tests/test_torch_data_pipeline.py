@@ -407,7 +407,8 @@ def test_pipeline_clis(y4m_clip, tmp_path, monkeypatch):
 def test_evaluate_quality_cli(both, tmp_path):
     """The quality CLI on an interval's keyframes against its midpoints
     (PNG), its JSON equal to QualityEvaluator's numbers; a directory of JPEGs
-    alone raises and says so."""
+    alone is read as the reference reads it (cv2's pixels), and a
+    progressive JPEG raises UnsupportedJPEG."""
     from vfisr_tpu_torch.evaluation import QualityEvaluator
 
     idir = both["torch"]["data"] / "clips" / "clip" / "intervals" / "interval_0002"
@@ -425,8 +426,15 @@ def test_evaluate_quality_cli(both, tmp_path):
     cv2.imwrite(str(jpg / "f_0000.jpg"), kfs[0])
     code, _ = _main("evaluate_quality", ["--pred-dir", str(jpg), "--gt-dir", str(idir / "midpoints"),
                                          "--device", "cpu"])
-    assert code == 1
-    with pytest.raises(SystemExit, match="JPEG frames only"):
-        import vfisr_tpu_torch.evaluate_quality as eq
+    assert code == 0
+    import vfisr_tpu_torch.evaluate_quality as eq
+    from vfisr_tpu_torch.data.jpeg import UnsupportedJPEG
 
-        eq.load_dir(jpg)
+    got = eq.load_dir(jpg)
+    want = cv2.cvtColor(cv2.imread(str(jpg / "f_0000.jpg")), cv2.COLOR_BGR2RGB)
+    assert len(got) == 1 and np.array_equal(got[0], want)
+    prog = tmp_path / "prog"
+    prog.mkdir()
+    cv2.imwrite(str(prog / "f_0000.jpg"), kfs[0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(UnsupportedJPEG):
+        eq.load_dir(prog)

@@ -105,9 +105,10 @@ def test_history_ring_shifts():
 def test_port_imports_no_jax_cv2_or_reference():
     """Importing every module of the port (the trainer, its CLI, the clip
     renderer, the calibrations, the scale-out, the blind study's CLIs, the
-    JPEG codec, the study servers and the study and report scripts
-    included), and chip_smoke.py, pulls in no jax, no cv2, no PIL and
-    nothing of vfisr_tpu."""
+    JPEG codec, the study servers, the study and report scripts, the setup,
+    probe and entry files and the profile tools included), and
+    chip_smoke.py, pulls in no jax, no cv2, no PIL and nothing of
+    vfisr_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vfisr_tpu_torch\n"
@@ -119,7 +120,10 @@ def test_port_imports_no_jax_cv2_or_reference():
         "          'gui.benchmark_proper', 'gui.benchmark_all', 'gui.generate_clips',\n"
         "          'prepare_blind_study', 'data.jpeg', 'gui.web_app', 'gui.video_blind_study',\n"
         "          'gui.blind_study_app', 'lpips_ordering_study', 'check_expert_downscale',\n"
-        "          'generate_comprehensive_report', 'generate_report_figures'):\n"
+        "          'generate_comprehensive_report', 'generate_report_figures',\n"
+        "          'verify_setup', 'probe_system', 'graft_entry', 'generate_figures',\n"
+        "          'profile_flagship', 'profile_pairs', 'profile_components', 'profile_adaptive',\n"
+        "          'profile_conv', 'profile_resize', 'profile_radius', 'profile_warp_tiles'):\n"
         "    importlib.import_module('vfisr_tpu_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -555,3 +555,75 @@ def test_data_parallel_step_world_1_nccl(tmp_path, monkeypatch):
         assert abs(a - b) <= 1e-5 * abs(b)
     for k, p in ref.items():
         assert (got[k] - p).abs().max().item() <= 1e-5 * max(1.0, p.abs().max().item()), k
+
+
+# warp_tiled.cu: K1 and K2 at tiles other than (32, 256), the tiles the
+# profile tools launch and the reference's own K2 test tile
+TILES = [(8, 128), (16, 256), (40, 256), (40, 640), (104, 640), (104, 256), (40, 1920), (8, 640),
+         (40, 960), (104, 960)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("dt,border", [(torch.float32, "replicate"), (torch.bfloat16, "constant")])
+def test_tiled_kernel_matches_plain(tile, dt, border):
+    _needs_card()
+    rng = np.random.default_rng(17)
+    n, h, w, c = 2, 270, 700, 3
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda()
+    flow = torch.from_numpy(smooth_flow(rng, n, h, w, 6.0, 1.0)).cuda()
+    t = torch.tensor([0.3, 0.9], device="cuda")
+    before = (tw.launches, tw.tiled_launches)
+    out = tw.warp_windowed(img, flow, t, r=(3, 4), border=border, compute_dtype=dt, tile=tile)
+    torch.cuda.synchronize()
+    assert (tw.launches, tw.tiled_launches) == (before[0] + 1, before[1] + 1)
+    ref = tw.warp_windowed_plain(img, flow, t, (3, 4), border, dt, tile=tile)
+    assert _err(out, ref) <= TOL[dt]
+    t_arr = t.float()
+    assert torch.equal(tw.kernel_origins(flow, t, (3, 4), dt, tile),
+                       tw.window_origins(flow, t_arr, 3, 4, dt == torch.bfloat16, tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("border", ["replicate", "constant"])
+@pytest.mark.parametrize("c", [3, 176])
+def test_tiled_grad_kernel_matches_plain(border, c):
+    """K2 at the reference's test tile (8, 128), r = 6, on a 1080p frame
+    (3 channels) and a narrow 176-channel map."""
+    _needs_card()
+    rng = np.random.default_rng(5)
+    n, h, w = (1, 1080, 1920) if c == 3 else (1, 48, 300)
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda()
+    ct = torch.from_numpy(rng.standard_normal((n, h, w, c)).astype(np.float32)).cuda()
+    flow = torch.from_numpy(smooth_flow(rng, n, h, w, 4.0, 1.0)).cuda()
+    before = (tw.grad_launches, tw.tiled_grad_launches)
+    gflow, cg = tw.warp_windowed_grad(img, flow, 0.7, ct, 6, border, tile=(8, 128))
+    torch.cuda.synchronize()
+    assert (tw.grad_launches, tw.tiled_grad_launches) == (before[0] + 1, before[1] + 1)
+    ref_gflow, ref_cg = tw.warp_windowed_grad_plain(img, flow, 0.7, ct, 6, border, tile=(8, 128))
+    scale = ref_cg.abs().max().item()
+    assert scale > 0
+    assert (cg - ref_cg).abs().max().item() <= 1e-5 * scale
+    assert (gflow - ref_gflow).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_tiled_kernel_at_the_default_tile_equals_the_tile_kernels(dt):
+    """At (32, 256) the tiled kernel computes what the tile kernels do."""
+    _needs_card()
+    rng = np.random.default_rng(9)
+    n, h, w, c = 2, 544, 960, 3
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda().to(dt)
+    ct = torch.from_numpy(rng.standard_normal((n, h, w, c)).astype(np.float32)).cuda().to(dt)
+    flow = torch.from_numpy(smooth_flow(rng, n, h, w, 6.0, 1.0)).cuda()
+    out, tiled = torch.empty_like(img), torch.empty_like(img)
+    tw.launch(img, flow, 1.0, out, (2, 2), "replicate", dt)
+    tw.launch_tiled(img, flow, 1.0, tiled, (2, 2), "replicate", dt, (32, 256))
+    g1, c1 = torch.empty_like(flow), torch.empty_like(flow)
+    g2, c2 = torch.empty_like(flow), torch.empty_like(flow)
+    tw.launch_grad(img, flow, 1.0, ct, g1, c1, (2, 2), "replicate", dt)
+    tw.launch_grad_tiled(img, flow, 1.0, ct, g2, c2, (2, 2), "replicate", dt, (32, 256))
+    torch.cuda.synchronize()
+    assert torch.equal(out, tiled)
+    assert torch.equal(c1, c2) and torch.equal(g1, g2)

@@ -170,6 +170,33 @@ def _dryrun_rank(tmp):
         dist.destroy_process_group()
 
 
+PROFILE_TOOLS = ("profile_flagship", "profile_pairs", "profile_components", "profile_adaptive",
+                 "profile_conv", "profile_resize", "profile_radius", "profile_warp_tiles")
+
+
+def _verify_setup(tmp):
+    from vfisr_tpu_torch.verify_setup import main
+
+    assert main(["--device", "cpu"]) == 0
+
+
+def _graft_entry(tmp):
+    from vfisr_tpu_torch.graft_entry import entry
+
+    entry("cpu")
+
+
+def _profile_tool(name):
+    def entry(tmp):
+        import importlib
+
+        with pytest.raises(SystemExit, match="needs a CUDA card"):  # no card here
+            importlib.import_module(f"vfisr_tpu_torch.{name}").main([])
+
+    entry.__name__ = f"_{name}"
+    return entry
+
+
 @pytest.mark.parametrize("entry", [_sweep, _benchmarks, _experiments_cli, _benchmark_cli,
                                    _extract_cli, _eval_vfi_cli, _eval_sr_cli, _gate_cli,
                                    _calibrate_router_cli, _calibrate_lpips_cli, _compile_aot_cli,
@@ -177,14 +204,16 @@ def _dryrun_rank(tmp):
                                    _blind_study_cli("benchmark_all"),
                                    _blind_study_cli("generate_clips"), _dryrun_rank,
                                    _web_app, _blind_study_app, _lpips_ordering_study,
-                                   _check_expert_downscale])
+                                   _check_expert_downscale, _verify_setup, _graft_entry,
+                                   *map(_profile_tool, PROFILE_TOOLS)])
 def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
     """The sweep, the triplet benchmark, the interval extraction (Farneback's
     f32 convolutions), their CLIs, the held-out evaluation and gate CLIs,
     the export CLI, the blind study's CLIs (RIFE and the flow model), a
     rank of the data-parallel dry run, the study servers' renders (web_app
-    and the Tk client) and the LPIPS and expert-downscale studies turn TF32
-    off before any work (here
+    and the Tk client), the LPIPS and expert-downscale studies, the setup
+    check, the export entry and the eight profile tools turn TF32 off
+    before any work (here
     the harnesses stop early: no interval, no clip; the gate has no
     checkpoint to score; the calibrations refuse to write over the shipped
     gate and heads; the export has no artifact to run)."""
@@ -202,7 +231,7 @@ def test_harness_entry_points_turn_tf32_off(entry, tf32_flags, tmp_path):
 # renderer and the calibrations, the export and its CLI, the scale-out, the
 # blind study's clip generation, the JPEG codec, the study servers and the
 # study scripts (and the host-only report, whose figures import matplotlib
-# on call)
+# on call), the setup, probe and entry files and the profile tools
 DEVICE_PATHS = ("pipeline", "pipeline.flagship", "pipeline.streaming", "process",
                 "batch_process", "bench", "benchmark", "run_experiments", "train.__main__",
                 "harness", "harness.experiments", "harness.device_sweep", "harness.triplet",
@@ -214,7 +243,8 @@ DEVICE_PATHS = ("pipeline", "pipeline.flagship", "pipeline.streaming", "process"
                 "gui.benchmark_proper", "gui.benchmark_all", "gui.generate_clips",
                 "prepare_blind_study", "data.jpeg", "gui.web_app", "gui.video_blind_study",
                 "gui.blind_study_app", "lpips_ordering_study", "check_expert_downscale",
-                "generate_comprehensive_report")
+                "generate_comprehensive_report", "verify_setup", "probe_system", "graft_entry",
+                "generate_figures") + PROFILE_TOOLS
 
 
 def test_device_paths_import_no_scipy_pandas_matplotlib_or_yaml():

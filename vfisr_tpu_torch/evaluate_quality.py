@@ -4,10 +4,12 @@
     python -m vfisr_tpu_torch.evaluate_quality --pred-dir pred/ --gt-dir gt/ \\
         [--comprehensive] [--output q.json]
 
-Frames are the directories' PNGs in name order (``data/png.py``). The
-reference falls back to ``*.jpg``; without a JPEG decoder a directory of
-JPEGs alone raises. The metrics run on ``--device`` (``cuda`` by default;
-``cpu`` for small runs).
+Frames are the directories' PNGs in name order (``data/png.py``) or,
+where a directory has none, its ``*.jpg`` in name order, decoded by
+``data/jpeg.py`` to ``cv2.imread``'s pixels, as the reference reads them.
+A JPEG layout the decoder lacks (progressive, arithmetic coded, ...)
+raises ``jpeg.UnsupportedJPEG``. The metrics run on ``--device`` (``cuda``
+by default; ``cpu`` for small runs).
 """
 
 import argparse
@@ -16,14 +18,16 @@ from pathlib import Path
 
 
 def load_dir(d) -> list:
-    """The directory's PNG frames as HWC uint8 RGB, in name order."""
+    """The directory's PNG frames, or failing those its JPEG frames
+    (``*.jpg``), as HWC uint8 RGB numpy arrays in name order."""
+    from vfisr_tpu_torch.data import jpeg
     from vfisr_tpu_torch.data.png import read_png
 
     paths = sorted(Path(d).glob("*.png"))
-    if not paths and (sorted(Path(d).glob("*.jpg")) or sorted(Path(d).glob("*.jpeg"))):
-        raise SystemExit(f"{d}: JPEG frames only; this tool reads PNG (no JPEG decoder "
-                         "without OpenCV): convert them to PNG")
-    return [read_png(p) for p in paths]
+    if paths:
+        return [read_png(p) for p in paths]
+    return [jpeg.decode(p.read_bytes(), device="cpu").numpy()
+            for p in sorted(Path(d).glob("*.jpg"))]
 
 
 def main(argv=None):

@@ -111,3 +111,37 @@ def measure(
             samples.append((timer() - t0) * 1000.0)
         method = "host_wall_clock"
     return _stats(samples, frames_per_call, iterations, warmup, method)
+
+
+def p50_ms(fn: Callable, device, reps: int, warmup: int) -> float:
+    """The median ms of ``fn()`` over ``reps`` calls after ``warmup``
+    (``measure``: CUDA events on a card, the host clock on the CPU)."""
+    return measure(fn, iterations=reps, warmup=warmup, device=str(device)).p50_ms
+
+
+def profile_main(prog: str, description: str, cases: Callable, argv=None) -> int:
+    """The command line of the ``profile_*`` tools: ``--device`` (cuda by
+    default; a run on the CPU times the host, for tests), ``--reps`` and
+    ``--warmup``. Turns TF32 off, refuses ``cuda`` without a card, then
+    prints each dict that ``cases(device, reps, warmup)`` yields as one
+    JSON line with the device's name. A failed case raises: nothing is
+    printed in its place."""
+    import argparse
+    import json
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parser = argparse.ArgumentParser(prog=f"python -m vfisr_tpu_torch.{prog}",
+                                     description=description)
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--reps", type=int, default=20, help="timed calls per case")
+    parser.add_argument("--warmup", type=int, default=3, help="untimed calls before them")
+    args = parser.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"{prog}: --device cuda needs a CUDA card "
+                         "(torch.cuda.is_available() is False)")
+    device = torch.device(args.device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu (host clock)"
+    for line in cases(device, args.reps, args.warmup):
+        print(json.dumps({**line, "device": name}), flush=True)
+    return 0

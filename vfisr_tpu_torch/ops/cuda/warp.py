@@ -10,8 +10,9 @@ a shared library with a plain C interface at first use (into ``vfisr_tpu_torch/_
 keyed by a hash of the source), and ctypes loads it. No PyTorch header is
 compiled, so the build takes seconds.
 
-Semantics (identical to the Pallas kernel's): each 32x256 output tile reads
-a window placed at the tile's rounded mean displacement; each pixel samples
+Semantics (identical to the Pallas kernel's): each output tile (32x256 by
+default; ``tile`` as the Pallas wrapper's) reads a window placed at the
+tile's rounded mean displacement; each pixel samples
 bilinearly at ``p + t*flow[p]``, clipped to the content (replicate border)
 or to r px past it over zeros (constant border), with its offset inside the
 window clamped to ``[0, nsh-1.001]``. So the warp is exact wherever a
@@ -40,6 +41,18 @@ outputs in one launch; only a plan with several chunks per tile has each
 chunk's partial sums go to an f32 scratch that ``launch_grad`` allocates,
 added in chunk order by a second kernel (deterministic, no atomics).
 ``plan`` says how the kernels take a launch.
+
+Tiles. The kernels above are built for the 32x256 tile (``TILE``); every
+call at that tile goes to them. A call at any other ``tile`` goes to
+``csrc/warp_tiled.cu`` (its own library, ``build_tiled``): an origins pass
+that takes (th, tw) at run time, then one thread per output pixel looping
+over the channels, K1 and K2 from one template. Its launches add to
+``launches``/``grad_launches`` as the others' do, and to
+``tiled_launches``/``tiled_grad_launches``. ``launch_tiled`` and
+``launch_grad_tiled`` launch it at any tile, 32x256 included (the checks
+that hold it against the 32x256 kernels). The reference's
+``_timing_skip_roll`` (a TPU timing flag whose output is wrong by design)
+and ``interpret`` (the plain twin on the CPU here) are not carried over.
 
 ``warp_windowed_plain`` (with its ``weight_mode``) and
 ``warp_windowed_grad_plain`` are the same functions in plain PyTorch. The
@@ -70,6 +83,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "warp_windowed.cu"
+TILED_SOURCE = _PKG / "csrc" / "warp_tiled.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -79,8 +93,12 @@ TILE = (32, 256)  # the kernels' kTh, kTw
 # show which path it went through. Only the CUDA launches below add to them.
 launches = 0
 grad_launches = 0
+# the launches of warp_tiled.cu alone (also counted in the two above)
+tiled_launches = 0
+tiled_grad_launches = 0
 
 _lib = None
+_tiled_lib = None
 
 
 def _nvcc() -> str:
@@ -93,22 +111,28 @@ def _nvcc() -> str:
         "warp kernels are built from csrc/warp_windowed.cu at first use on the GPU")
 
 
+def _compile(source: Path) -> Path:
+    """nvcc ``source`` into a shared library under BUILD_DIR, once per hash
+    of the source and the flags; returns its path."""
+    tag = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"{source.stem}_{tag}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, so)
+    return so
+
+
 def build() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernels' library."""
     global _lib
     if _lib is not None:
         return _lib
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"warp_windowed_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(_compile(SOURCE)))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     t_args = [p, f, i]  # t pointer (or None), t_scalar, t_stride
     lib.warp_windowed_launch.argtypes = [p, p, *t_args, p] + [i] * 14 + [f] * 6 + [p]
@@ -122,20 +146,44 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def build_tiled() -> ctypes.CDLL:
+    """Build (once per source hash) and load ``csrc/warp_tiled.cu``'s
+    library: the kernels at any tile."""
+    global _tiled_lib
+    if _tiled_lib is not None:
+        return _tiled_lib
+    lib = ctypes.CDLL(str(_compile(TILED_SOURCE)))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.warp_tiled_origins_launch.argtypes = [p, p, f, i, p, p] + [i] * 11 + [p]
+    lib.warp_tiled_launch.argtypes = [p, p, p, f, i, p, p, p, p, p] + [i] * 15 + [f] * 6 + [p]
+    for fn in (lib.warp_tiled_origins_launch, lib.warp_tiled_launch):
+        fn.restype = ctypes.c_int
+    _tiled_lib = lib
+    return lib
+
+
 def _radii(r) -> Tuple[int, int]:
     return (int(r), int(r)) if isinstance(r, int) else (int(r[0]), int(r[1]))
 
 
-def _content_origin(ry, rx):
+def _tile(tile) -> Tuple[int, int]:
+    th, tw = int(tile[0]), int(tile[1])
+    if th <= 0 or tw <= 0:
+        raise ValueError(f"tile must be two positive ints; got {tile!r}")
+    return th, tw
+
+
+def _content_origin(ry, rx, tile=TILE):
     """(PT, PL): where the content starts inside the reference's padded
-    canvas, in which window origins and source coordinates are expressed."""
-    th, tw = TILE
+    canvas, in which window origins and source coordinates are expressed
+    (pallas warp.py:262-263, for the output tile (th, tw))."""
+    th, tw = tile
     return ((th + ry + 1 + th - 1) // th) * th, ((tw + rx + 1 + tw - 1) // tw) * tw
 
 
-def _geometry(h, w, ry, rx, bf16, border):
+def _geometry(h, w, ry, rx, bf16, border, tile=TILE):
     """Canvas offsets, tap counts and clip bounds (pallas warp.py:246-336)."""
-    pt, pl = _content_origin(ry, rx)
+    pt, pl = _content_origin(ry, rx, tile)
     nsh_y = 2 * ry + 2 + (1 if bf16 else 0)
     nsh_x = 2 * rx + 2
     if border == "constant":
@@ -152,9 +200,9 @@ def _t_array(t, n: int, device) -> torch.Tensor:
 
 
 def window_origins(flow: torch.Tensor, t_arr: torch.Tensor, ry: int, rx: int,
-                   bf16: bool) -> torch.Tensor:
-    """Effective window origin (oy, ox) per tile, canvas coordinates:
-    [N, TY, TX, 2] int32.
+                   bf16: bool, tile=TILE) -> torch.Tensor:
+    """Effective window origin (oy, ox) per output tile (th, tw), canvas
+    coordinates: [N, TY, TX, 2] int32.
 
     The tile mean is taken over the flow edge-padded to tile multiples, in
     f32, by the same chain of 2x2 halvings and final reduce as the
@@ -164,9 +212,9 @@ def window_origins(flow: torch.Tensor, t_arr: torch.Tensor, ry: int, rx: int,
     the row origin is rounded down to even.
     """
     n, h, w, _ = flow.shape
-    th, tw = TILE
+    th, tw = _tile(tile)
     ph_c, pw_c = (-h) % th, (-w) % tw
-    pt, pl = _content_origin(ry, rx)
+    pt, pl = _content_origin(ry, rx, (th, tw))
     m = flow.permute(0, 3, 1, 2).float()
     if ph_c or pw_c:
         m = torch.nn.functional.pad(m, (0, pw_c, 0, ph_c), mode="replicate")
@@ -235,16 +283,16 @@ def _t_args(t, n: int, device) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _shape_args(n, h, w, c, img_bf16, flow_bf16, ry, rx, bf16, border) -> tuple:
+def _shape_args(n, h, w, c, img_bf16, flow_bf16, ry, rx, bf16, border, tile=TILE) -> tuple:
     """The launch arguments K1 and K2 share, after their pointers."""
-    pt, pl, nsh_y, nsh_x, clip = _geometry(h, w, ry, rx, bf16, border)
+    pt, pl, nsh_y, nsh_x, clip = _geometry(h, w, ry, rx, bf16, border, tile)
     return (n, h, w, c, int(img_bf16), int(flow_bf16), int(bf16), int(border == "constant"),
             ry, rx, pt, pl, nsh_y, nsh_x, *clip, nsh_y - 1.001, nsh_x - 1.001)
 
 
-def _launch_args(img, flow, r, border, compute_dtype) -> tuple:
+def _launch_args(img, flow, r, border, compute_dtype, tile=TILE) -> tuple:
     return _shape_args(*img.shape, img.dtype == torch.bfloat16, flow.dtype == torch.bfloat16,
-                       *_radii(r), compute_dtype == torch.bfloat16, border)
+                       *_radii(r), compute_dtype == torch.bfloat16, border, tuple(tile))
 
 
 PLAN_FIELDS = ("split", "rows", "grouped", "groups", "cg", "smem", "ctas", "chunks", "pixels",
@@ -282,48 +330,56 @@ def plan(img: torch.Tensor, r, compute_dtype: torch.dtype, grad: bool = False):
 
 def warp_windowed(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
                   border: str = "replicate",
-                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  compute_dtype: torch.dtype = torch.float32, tile=TILE) -> torch.Tensor:
     """Backward-warp img [N,H,W,C] by t*flow (flow [N,H,W,2] = (dx, dy)).
 
     t: scalar or [N]; r: int or (ry, rx) residual radius; border:
     'replicate' or 'constant'; compute_dtype: window dtype (bf16 as in the
-    TPU kernel's compute_dtype). Any C (in channel groups where the window
-    needs them, ``plan``). Returns img's dtype. Goes through the custom op
-    ``torch.ops.vfisr_tpu_torch.warp_windowed``, which ``torch.export``
-    keeps as one node: CPU tensors take ``warp_windowed_plain``, CUDA
-    tensors the kernel.
+    TPU kernel's compute_dtype); tile: the output tile (th, tw) each window
+    serves, as the Pallas wrapper's. Any C (in channel groups where the
+    window needs them, ``plan``). Returns img's dtype. Goes through the
+    custom op ``torch.ops.vfisr_tpu_torch.warp_windowed``, which
+    ``torch.export`` keeps as one node: CPU tensors take
+    ``warp_windowed_plain``, CUDA tensors the kernel (``warp_tiled.cu``
+    at a tile other than ``TILE``).
     """
     _check(img, flow, border, compute_dtype)
     if img.device.type != "cpu":
         _check_cuda("warp_windowed", img, flow)
     ry, rx = _radii(r)
+    th, tw = _tile(tile)
     if isinstance(t, (int, float)):
         t_tensor, t_scalar = None, float(t)
     else:
         t_tensor, t_scalar = torch.as_tensor(t, dtype=torch.float32, device=img.device), 0.0
     return torch.ops.vfisr_tpu_torch.warp_windowed(img, flow, t_tensor, t_scalar, ry, rx, border,
-                                                   compute_dtype)
+                                                   compute_dtype, th, tw)
 
 
 # The op's schema: warp_windowed's arguments with t split into a tensor (or
-# None) and a number, and r into (ry, rx). Defined with torch.library's
+# None) and a number, r into (ry, rx) and tile into (th, tw). Defined with torch.library's
 # Library API: torch.library.custom_op wraps each kernel in a guard that
 # imports torch._dynamo at the op's first call (seconds per process).
 _LIB = torch.library.Library("vfisr_tpu_torch", "DEF")
 _LIB.define("warp_windowed(Tensor img, Tensor flow, Tensor? t, float t_scalar, int ry, int rx, "
-            "str border, ScalarType compute_dtype) -> Tensor")
+            "str border, ScalarType compute_dtype, int th=32, int tw=256) -> Tensor")
 
 
-def _warp_windowed_cuda(img, flow, t, t_scalar, ry, rx, border, compute_dtype):
-    """The op on CUDA tensors: one launch of K1 (``launch``)."""
+def _warp_windowed_cuda(img, flow, t, t_scalar, ry, rx, border, compute_dtype, th=32, tw=256):
+    """The op on CUDA tensors: one launch of K1 (``launch`` at ``TILE``,
+    ``launch_tiled`` at any other tile)."""
     out = torch.empty_like(img)
-    launch(img, flow, t_scalar if t is None else t, out, (ry, rx), border, compute_dtype)
+    t = t_scalar if t is None else t
+    if (th, tw) == TILE:
+        launch(img, flow, t, out, (ry, rx), border, compute_dtype)
+    else:
+        launch_tiled(img, flow, t, out, (ry, rx), border, compute_dtype, (th, tw))
     return out
 
 
-def _warp_windowed_cpu(img, flow, t, t_scalar, ry, rx, border, compute_dtype):
+def _warp_windowed_cpu(img, flow, t, t_scalar, ry, rx, border, compute_dtype, th=32, tw=256):
     return warp_windowed_plain(img, flow, t_scalar if t is None else t, (ry, rx), border,
-                               compute_dtype)
+                               compute_dtype, tile=(th, tw))
 
 
 _LIB.impl("warp_windowed", _warp_windowed_cuda, "CUDA")
@@ -331,16 +387,20 @@ _LIB.impl("warp_windowed", _warp_windowed_cpu, "CPU")
 
 
 @torch.library.register_fake("vfisr_tpu_torch::warp_windowed")
-def _warp_windowed_fake(img, flow, t, t_scalar, ry, rx, border, compute_dtype):
+def _warp_windowed_fake(img, flow, t, t_scalar, ry, rx, border, compute_dtype, th=32, tw=256):
     return torch.empty_like(img)
 
 
 def launch(img: torch.Tensor, flow: torch.Tensor, t, out: torch.Tensor, r, border: str,
-           compute_dtype: torch.dtype) -> None:
+           compute_dtype: torch.dtype, tile=TILE) -> None:
     """Launch K1 on checked CUDA tensors (``warp_windowed`` checks them):
     t a number or a tensor of 1 or N elements, out like img. The kernel
-    computes the window origins itself."""
+    computes the window origins itself. A tile other than ``TILE`` goes to
+    ``launch_tiled``."""
     global launches
+    if tuple(tile) != TILE:
+        launch_tiled(img, flow, t, out, r, border, compute_dtype, tile)
+        return
     lib = build()
     t_args, _keep = _t_args(t, img.shape[0], img.device)
     with torch.cuda.device(img.device):
@@ -355,7 +415,7 @@ def launch(img: torch.Tensor, flow: torch.Tensor, t, out: torch.Tensor, r, borde
 
 def warp_windowed_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor, r=8,
                        border: str = "replicate",
-                       compute_dtype: torch.dtype = torch.float32
+                       compute_dtype: torch.dtype = torch.float32, tile=TILE
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The flow gradient of ``warp_windowed`` (K2): ``(grad_flow, cg)``.
 
@@ -364,35 +424,40 @@ def warp_windowed_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tenso
     times the Pallas kernel's 'grad_x' and 'grad_y' outputs; grad_flow =
     cg * t in flow's dtype. The window origins are those of the forward
     and constant. Any C (in channel groups where the window needs them,
-    ``plan(grad=True)``). CPU tensors go to ``warp_windowed_grad_plain``;
-    CUDA tensors to the kernel.
+    ``plan(grad=True)``); tile as for ``warp_windowed``. CPU tensors go to
+    ``warp_windowed_grad_plain``; CUDA tensors to the kernel.
     """
     _check(img, flow, border, compute_dtype)
     if ct.shape != img.shape or ct.dtype != img.dtype or ct.device != img.device:
         raise ValueError(f"ct must be like img {tuple(img.shape)} {img.dtype}; got "
                          f"{tuple(ct.shape)} {ct.dtype} on {ct.device}")
+    tile = _tile(tile)
     if img.device.type == "cpu":
-        return warp_windowed_grad_plain(img, flow, t, ct, r, border, compute_dtype)
+        return warp_windowed_grad_plain(img, flow, t, ct, r, border, compute_dtype, tile)
     _check_cuda("warp_windowed_grad", img, flow)
     grad_flow = torch.empty_like(flow)
     cg = torch.empty(flow.shape, dtype=torch.float32, device=flow.device)
     # autograd hands back cotangents of permuted outputs (rife.py's NCHW
     # views): the kernel reads ct as [N,H,W,C] contiguous
-    launch_grad(img, flow, t, ct.contiguous(), grad_flow, cg, r, border, compute_dtype)
+    launch_grad(img, flow, t, ct.contiguous(), grad_flow, cg, r, border, compute_dtype, tile)
     return grad_flow, cg
 
 
 def launch_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor,
                 grad_flow: torch.Tensor, cg: torch.Tensor, r, border: str,
-                compute_dtype: torch.dtype) -> None:
+                compute_dtype: torch.dtype, tile=TILE) -> None:
     """Launch K2 on checked CUDA tensors (``warp_windowed_grad`` prepares
     them): t as for ``launch``, ct contiguous like img, grad_flow like flow
     and cg [N,H,W,2] f32, both fresh allocations (written as aligned
     pairs). The kernel recomputes the forward's window origins. A launch in
     channel groups whose plan takes several chunks per tile also takes an
     f32 scratch [chunks, N, H, W, 2] for the chunks' partial sums,
-    allocated here."""
+    allocated here. A tile other than ``TILE`` goes to
+    ``launch_grad_tiled``."""
     global grad_launches
+    if tuple(tile) != TILE:
+        launch_grad_tiled(img, flow, t, ct, grad_flow, cg, r, border, compute_dtype, tile)
+        return
     lib = build()
     t_args, _keep = _t_args(t, img.shape[0], img.device)
     pl = plan(img, r, compute_dtype, grad=True)
@@ -409,10 +474,12 @@ def launch_grad(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor,
     grad_launches += 1
 
 
-def kernel_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype) -> torch.Tensor:
+def kernel_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype,
+                   tile=TILE) -> torch.Tensor:
     """The window origins K1 and K2 compute in their prologue, from the
     same device function, for flow [N,H,W,2] on a CUDA card: [N, TY, TX, 2]
-    int32 (oy, ox), canvas coordinates, as ``window_origins`` gives them.
+    int32 (oy, ox), canvas coordinates, as ``window_origins`` gives them
+    (at a tile other than ``TILE``: ``warp_tiled.cu``'s origins pass).
     A check of the kernels (chip_smoke.py, the CUDA tests): the warp's
     output alone can hide an origin one pixel off. The main path never
     calls it. Raises on a CPU tensor: the kernels have no CPU mode."""
@@ -421,6 +488,9 @@ def kernel_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype) -> torc
                          f"on {flow.device}")
     if flow.dtype not in (torch.float32, torch.bfloat16) or not flow.is_contiguous():
         raise ValueError(f"kernel_origins needs a contiguous f32 or bf16 flow; got {flow.dtype}")
+    tile = _tile(tile)
+    if tile != TILE:
+        return _tiled_origins(flow, t, r, compute_dtype, tile)[0]
     n, h, w, _ = flow.shape
     ry, rx = _radii(r)
     pt, pl = _content_origin(ry, rx)
@@ -439,13 +509,87 @@ def kernel_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype) -> torc
     return origin
 
 
+def _tiled_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype, tile) -> tuple:
+    """Run ``warp_tiled.cu``'s origins pass for flow [N,H,W,2] on its CUDA
+    card at tile (th, tw): (origin [N, TY, TX, 2] int32, the t tensor the
+    kernels read, or None for a number: kept alive across the launches)."""
+    n, h, w, _ = flow.shape
+    ry, rx = _radii(r)
+    th, tw = tile
+    pt, pl = _content_origin(ry, rx, tile)
+    g = 1
+    while th % (2 * g) == 0 and tw % (2 * g) == 0:
+        g *= 2
+    ty_n, tx_n = -(-h // th), -(-w // tw)
+    origin = torch.empty((n, ty_n, tx_n, 2), dtype=torch.int32, device=flow.device)
+    cells = torch.empty((n, ty_n, tx_n, (th // g) * (tw // g), 2), dtype=torch.float32,
+                        device=flow.device)
+    lib = build_tiled()
+    t_args, keep = _t_args(t, n, flow.device)
+    with torch.cuda.device(flow.device):
+        stream = torch.cuda.current_stream(flow.device).cuda_stream
+        err = lib.warp_tiled_origins_launch(
+            flow.data_ptr(), *t_args, cells.data_ptr(), origin.data_ptr(), n, h, w,
+            int(flow.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16), th, tw, ry,
+            rx, pt, pl, stream)
+    if err != 0:
+        raise RuntimeError(f"warp_tiled origins launch failed: cudaError {err}")
+    return origin, keep
+
+
+def _tiled(img, flow, t, r, border, compute_dtype, tile, ct=None, out=None, cg=None,
+           grad_flow=None) -> None:
+    """Launch ``warp_tiled.cu``: its origins pass, then K1 (out) or, with
+    ct, K2 (cg, grad_flow) at tile, on checked contiguous CUDA tensors."""
+    tile = _tile(tile)
+    origin, _keep = _tiled_origins(flow, t, r, compute_dtype, tile)
+    lib = build_tiled()
+    t_args, _keep_t = _t_args(t, img.shape[0], img.device)
+    grad = ct is not None
+    args = _launch_args(img, flow, r, border, compute_dtype, tile)
+    n, h, w, c, img_bf16, flow_bf16, bf16, constant, ry, rx, pt, pl = args[:12]
+    clip = args[14:]
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.warp_tiled_launch(
+            img.data_ptr(), flow.data_ptr(), *t_args, origin.data_ptr(),
+            ct.data_ptr() if grad else None, None if grad else out.data_ptr(),
+            cg.data_ptr() if grad else None, grad_flow.data_ptr() if grad else None,
+            n, h, w, c, img_bf16, flow_bf16, bf16, constant, int(grad), tile[0], tile[1], ry, rx,
+            pt, pl, *clip, stream)
+    if err != 0:
+        raise RuntimeError(f"warp_tiled {'grad ' if grad else ''}kernel launch failed: "
+                           f"cudaError {err}")
+
+
+def launch_tiled(img: torch.Tensor, flow: torch.Tensor, t, out: torch.Tensor, r, border: str,
+                 compute_dtype: torch.dtype, tile) -> None:
+    """Launch K1 of ``warp_tiled.cu`` at any tile (32x256 included) on
+    checked CUDA tensors, as ``launch`` takes them."""
+    global launches, tiled_launches
+    _tiled(img, flow, t, r, border, compute_dtype, tile, out=out)
+    launches += 1
+    tiled_launches += 1
+
+
+def launch_grad_tiled(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor,
+                      grad_flow: torch.Tensor, cg: torch.Tensor, r, border: str,
+                      compute_dtype: torch.dtype, tile) -> None:
+    """Launch K2 of ``warp_tiled.cu`` at any tile (32x256 included) on
+    tensors prepared as for ``launch_grad``."""
+    global grad_launches, tiled_grad_launches
+    _tiled(img, flow, t, r, border, compute_dtype, tile, ct=ct, cg=cg, grad_flow=grad_flow)
+    grad_launches += 1
+    tiled_grad_launches += 1
+
+
 WEIGHT_MODES = ("interp", "grad_y", "grad_x")
 
 
 def warp_windowed_plain(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
                         border: str = "replicate",
                         compute_dtype: torch.dtype = torch.float32,
-                        weight_mode: str = "interp") -> torch.Tensor:
+                        weight_mode: str = "interp", tile=TILE) -> torch.Tensor:
     """``warp_windowed`` in plain PyTorch: the same taps, weights and
     rounding steps as the kernel, as whole-tensor ops on any device.
 
@@ -454,7 +598,9 @@ def warp_windowed_plain(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
     that axis' hat replaced by its floor-consistent derivative (-1 at the
     lower tap, +1 at the upper) and masked to 0 where the forward
     saturates: the source coordinate outside [lo, hi) or the residual
-    outside [0, nsh-1.001). Returns img's dtype.
+    outside [0, nsh-1.001). tile: the output tile (th, tw), which places
+    the windows (``window_origins``) and the content origin. Returns img's
+    dtype.
     """
     _check(img, flow, border, compute_dtype)
     if weight_mode not in WEIGHT_MODES:
@@ -462,11 +608,11 @@ def warp_windowed_plain(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
     n, h, w, c = img.shape
     ry, rx = _radii(r)
     bf16 = compute_dtype == torch.bfloat16
-    th, tw = TILE
-    pt, pl, nsh_y, nsh_x, (ylo, yhi, xlo, xhi) = _geometry(h, w, ry, rx, bf16, border)
+    th, tw = _tile(tile)
+    pt, pl, nsh_y, nsh_x, (ylo, yhi, xlo, xhi) = _geometry(h, w, ry, rx, bf16, border, (th, tw))
     dev = img.device
     t_arr = _t_array(t, n, dev)
-    origin = window_origins(flow, t_arr, ry, rx, bf16).long()
+    origin = window_origins(flow, t_arr, ry, rx, bf16, (th, tw)).long()
     ys = torch.arange(h, device=dev)
     xs = torch.arange(w, device=dev)
     oy = origin[..., 0][:, ys // th][:, :, xs // tw]  # [N,H,W]
@@ -521,12 +667,12 @@ def warp_windowed_plain(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
 
 def warp_windowed_grad_plain(img: torch.Tensor, flow: torch.Tensor, t, ct: torch.Tensor, r=8,
                              border: str = "replicate",
-                             compute_dtype: torch.dtype = torch.float32
+                             compute_dtype: torch.dtype = torch.float32, tile=TILE
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``warp_windowed_grad`` in plain PyTorch, on the grad weight modes:
     the two per-channel derivatives, each times ct and summed over
     channels in f32, then scaled by t."""
-    gx, gy = (warp_windowed_plain(img, flow, t, r, border, compute_dtype, mode)
+    gx, gy = (warp_windowed_plain(img, flow, t, r, border, compute_dtype, mode, tile)
               for mode in ("grad_x", "grad_y"))
     ctf = ct.float()
     cg = torch.stack([(ctf * gx.float()).sum(-1), (ctf * gy.float()).sum(-1)], -1)
