@@ -400,8 +400,9 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    step 21's experiment_results.json (without matplotlib the figures script
    must say so by name; its table is made then from the same rankings).
 27. the last slice: (a) builds csrc/warp_tiled.cu (K1 and K2 at any output
-   tile) and holds it against the plain twin at the same tile, origins
-   included, at every tile and shape the profile tools launch off 32x256
+   tile) and holds it against the plain twin at the same tile (K1 bit for
+   bit), origins included, printing each launch's plan (ops/cuda/warp.py::
+   card_tiled_plan), at every tile and shape the profile tools launch off 32x256
    (profile_components' 16x256 at r = 6, 4, 2 on [6,1088,1920,3] f32;
    profile_warp_tiles' seven tiles at r = (3,4) bf16 and its two half-size
    ones at (2,2)), at a constant border, a flow past the window, 176
@@ -418,8 +419,9 @@ vfisr_tpu_torch/ and weights/ beside this file; no network. It
    the sharded flagship check over a gloo pair of ranks on the card,
    ``generate_figures`` on step 21's results (without matplotlib it exits
    non-zero naming it) and ``evaluate_quality`` on JPEGs ``data/jpeg.py``
-   wrote; the three CLIs and the two ranks are child processes started
-   with the step, and the per-shape timing comes last.
+   wrote (decoded on the card); the three CLIs and the two ranks are child
+   processes started with the step, and the per-shape timing comes last,
+   each tiled shape's line with its plan.
 
 Any failure raises and the exit code is not 0. The line before the last is
 {"kernels": [...]}: per kernel, its launches counted on every path that runs
@@ -5131,8 +5133,8 @@ def _tile_key(a: dict) -> tuple:
 
 def check_tiled(kw, label: str, a: dict) -> float:
     """warp_tiled.cu's K1 (through the wrapper at a's tile) against the
-    plain twin at that tile, and its origins against window_origins;
-    returns the error."""
+    plain twin at that tile, bit for bit (max abs error 0), and its origins
+    against window_origins; returns the error."""
     tile = a["tile"]
     args = (a["img"], a["flow"], a["t"], a["r"], a["border"], a["compute_dtype"])
     before = kw.tiled_launches
@@ -5149,9 +5151,22 @@ def check_tiled(kw, label: str, a: dict) -> float:
     want = ORIGIN_TABLE(a["flow"], t_arr, ry, rx, a["compute_dtype"] == torch.bfloat16, tile)
     same = got.shape == want.shape and torch.equal(got, want)
     print(f"tiled kernel vs plain {label}: {_label(a)} tile {tuple(tile)}: max_abs_err {err:.3e} "
-          f"tol {tol:.3e}, origins {'equal' if same else 'DIFFER'}")
-    require(err <= tol and same, f"tiled kernel vs plain {label}")
+          f"(required 0; the twin's tolerance {tol:.3e}), origins {'equal' if same else 'DIFFER'}; "
+          f"plan {_plan_text(kw, a)}")
+    require(err == 0.0 and same, f"tiled kernel vs plain {label}")
     return err
+
+
+def _plan_text(kw, a: dict, grad: bool = False) -> str:
+    """warp_tiled.cu's plan of a's launch on the card, in one line."""
+    pl = kw.card_tiled_plan(a["img"], a["r"], a["compute_dtype"], tuple(a["tile"]), grad)
+    if pl is None:
+        return "refused"
+    return (f"{pl['rows']}x{pl['cols']} px slabs, {pl['bands']} bands x {pl['segments']} "
+            f"segments per tile, {pl['slabs']} slabs, "
+            + (f"chunks of {pl['chunk']} channels x{pl['chunks']}, " if pl["chunked"] else "")
+            + f"{pl['ring_rows']} ring rows, {pl['smem']} B shared, {pl['ctas']} CTAs, "
+            f"{pl['ctas_per_sm']} per SM, origins {'fused' if pl['fused'] else 'pass'}")
 
 
 def check_tiled_grad(kw, label: str, a: dict) -> float:
@@ -5170,54 +5185,71 @@ def check_tiled_grad(kw, label: str, a: dict) -> float:
     tol = (2.0 / 255.0 if a["compute_dtype"] == torch.bfloat16 else 1e-5) * scale
     require(scale > 0, f"{label} has a gradient to check")
     print(f"tiled grad kernel vs plain {label}: {_label(a)} tile {tuple(tile)}: max_abs_err "
-          f"{err:.3e} tol {tol:.3e}")
+          f"{err:.3e} tol {tol:.3e}; plan {_plan_text(kw, a, True)}")
     require(err <= tol, f"tiled grad kernel vs plain {label}")
     return err
 
 
+def tiled_case_specs() -> list:
+    """The tiled kernel's cases without their tensors: every (shape, r,
+    window dtype, tile) the profile tools launch at a tile other than
+    32x256 (their inputs' kind: random +-4 px flows, the smooth gaming
+    flow), and the edges: a constant border, a flow past the window, 176
+    channels, a t per image. Each: name, shape, compute_dtype, r, tile,
+    flow (its kind), t, border, amp. tests/test_torch_tiles.py plans them."""
+    bf, f32 = torch.bfloat16, torch.float32
+    full, half = (6, 1088, 1920, 3), (6, 544, 960, 3)
+
+    def spec(name, shape, cd, r, tile, flow="random", t=1.0, border="replicate", amp=4.0):
+        return dict(name=name, shape=shape, compute_dtype=cd, r=r, tile=tile, flow=flow, t=t,
+                    border=border, amp=amp)
+
+    specs = [spec(f"components_r{r}_t16x256", full, f32, r, (16, 256)) for r in (6, 4, 2)]
+    specs += [spec(f"warp_tiles_t{th}x{tw}", full, bf, (3, 4), (th, tw), flow="gaming")
+              for th, tw in ((40, 256), (40, 640), (104, 640), (104, 256), (40, 1920), (8, 640))]
+    specs += [spec(f"warp_tiles_half_t{th}x{tw}", half, bf, (2, 2), (th, tw), flow="gaming_half")
+              for th, tw in ((40, 960), (104, 960))]
+    specs += [
+        spec("constant_border_bf16_t40x256", (2, 544, 960, 3), bf, (2, 2), (40, 256),
+             flow="smooth12", border="constant"),
+        spec("constant_border_f32_t8x640", (2, 544, 960, 3), f32, 8, (8, 640), flow="smooth12",
+             border="constant"),
+        spec("past_window_t40x256", (2, 544, 960, 3), bf, (2, 2), (40, 256), flow="smooth25"),
+        spec("c176_t16x256", (3, 114, 144, 176), f32, 8, (16, 256), amp=6.0),
+        spec("per_image_t_t40x256", (3, 270, 480, 3), f32, (3, 4), (40, 256),
+             t=(0.25, 0.5, 0.75)),
+    ]
+    return specs
+
+
 def tiled_cases(device) -> list:
-    """The tiled kernel's cases: every (shape, r, window dtype, tile) the
-    profile tools launch at a tile other than 32x256 (their inputs' kind:
-    random +-4 px flows, the smooth gaming flow), and the edges: a
-    constant border, a flow past the window, 176 channels, a t per image."""
+    """``tiled_case_specs`` with their tensors on ``device``: a random f32
+    image and cotangent, the flow of the spec's kind, t."""
     from vfisr_tpu_torch.profile_warp_tiles import gaming_flow
 
     gen = torch.Generator(device="cpu").manual_seed(27)
-    bf, f32 = torch.bfloat16, torch.float32
-
-    def case(name, shape, cd, r, tile, flow=None, t=1.0, border="replicate", amp=4.0):
-        n, h, w, c = shape
-        img = torch.rand(shape, generator=gen).to(device)
-        if flow is None:
-            flow = (torch.rand((n, h, w, 2), generator=gen) - 0.5) * (2 * amp)
-        return dict(name=name, img=img, flow=flow.to(device), t=t, r=r, border=border,
-                    compute_dtype=cd, tile=tile,
-                    ct=torch.randn(shape, generator=gen).to(device))
-
-    full, half = (6, 1088, 1920, 3), (6, 544, 960, 3)
     g_full = torch.from_numpy(gaming_flow(1088, 1920))[None].expand(6, -1, -1, -1).contiguous()
     g_half = torch.from_numpy(gaming_flow(1088, 1920)[::2, ::2] / 2)[None]
     g_half = g_half.expand(6, -1, -1, -1).contiguous()
-    cases = [case(f"components_r{r}_t16x256", full, f32, r, (16, 256)) for r in (6, 4, 2)]
-    cases += [case(f"warp_tiles_t{th}x{tw}", full, bf, (3, 4), (th, tw), flow=g_full)
-              for th, tw in ((40, 256), (40, 640), (104, 640), (104, 256), (40, 1920), (8, 640))]
-    cases += [case(f"warp_tiles_half_t{th}x{tw}", half, bf, (2, 2), (th, tw), flow=g_half)
-              for th, tw in ((40, 960), (104, 960))]
     yy, xx = torch.meshgrid(torch.arange(544.0), torch.arange(960.0), indexing="ij")
     smooth = torch.stack([torch.sin(xx / 17.0 + yy / 23.0), torch.cos(yy / 9.0)], -1)[None]
-    cases += [
-        case("constant_border_bf16_t40x256", (2, 544, 960, 3), bf, (2, 2), (40, 256),
-             flow=(12.0 * smooth + 0.5 * torch.randn((2, 544, 960, 2), generator=gen)),
-             border="constant"),
-        case("constant_border_f32_t8x640", (2, 544, 960, 3), f32, 8, (8, 640),
-             flow=(12.0 * smooth + 0.5 * torch.randn((2, 544, 960, 2), generator=gen)),
-             border="constant"),
-        case("past_window_t40x256", (2, 544, 960, 3), bf, (2, 2), (40, 256),
-             flow=(25.0 * smooth + 4.0 * torch.randn((2, 544, 960, 2), generator=gen))),
-        case("c176_t16x256", (3, 114, 144, 176), f32, 8, (16, 256), amp=6.0),
-        case("per_image_t_t40x256", (3, 270, 480, 3), f32, (3, 4), (40, 256),
-             t=torch.tensor([0.25, 0.5, 0.75], device=device)),
-    ]
+    cases = []
+    for sp in tiled_case_specs():
+        n, h, w, c = sp["shape"]
+        img = torch.rand(sp["shape"], generator=gen).to(device)
+        kind = sp["flow"]
+        if kind == "random":
+            flow = (torch.rand((n, h, w, 2), generator=gen) - 0.5) * (2 * sp["amp"])
+        elif kind == "gaming":
+            flow = g_full
+        elif kind == "gaming_half":
+            flow = g_half
+        else:  # smooth12, smooth25: that many px of smooth motion plus noise
+            amp, noise = (12.0, 0.5) if kind == "smooth12" else (25.0, 4.0)
+            flow = amp * smooth + noise * torch.randn((n, h, w, 2), generator=gen)
+        t = torch.tensor(sp["t"], device=device) if isinstance(sp["t"], tuple) else sp["t"]
+        cases.append(dict(sp, img=img, flow=flow.to(device), t=t,
+                          ct=torch.randn(sp["shape"], generator=gen).to(device)))
     return cases
 
 
@@ -5300,10 +5332,11 @@ def step27_by_shape(kw, label: str, firsts: dict, counts: dict, grad: bool = Fal
         bys.add(v["by"])
         for f in total:
             total[f] += n * v[f]
+        plan = "" if key[5] == kw.TILE else f"; plan {_plan_text(kw, firsts[key], grad)}"
         print(f"{label} launch shape {key[0]} {str(key[1])[6:]} window {str(key[2])[6:]} "
               f"r={key[3]} {key[4]} tile {key[5]} x{n}: kernel {v['kernel']:.4f} ms, bound "
               f"{v['bound']:.4f} ms ({v['by']}), plain {v['plain']:.4f} ms, "
-              f"grid_sample{' grad' if grad else ''} {v['library']:.4f} ms")
+              f"grid_sample{' grad' if grad else ''} {v['library']:.4f} ms{plan}")
     total["by"] = "bytes" if bys <= {"bytes"} else "operations"
     print(f"{label}: {sum(counts.values())} launches in {len(counts)} shapes, "
           + ", ".join(f"{f} {total[f]:.4f} ms" for f in ("kernel", "bound", "plain", "library")))

@@ -159,3 +159,42 @@ def test_evaluate_quality_reads_jpeg_frames_as_the_reference(tmp_path, monkeypat
     assert abs(got["psnr"] - want["psnr"]) <= 1e-9
     assert abs(got["ssim"] - want["ssim"]) <= 1e-5
     assert abs(got["lpips"] / want["lpips"] - 1) <= 1e-5
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_evaluate_quality_decodes_jpeg_on_its_device(tmp_path, monkeypatch, device):
+    """``--device`` reaches ``data/jpeg.py::decode`` for every JPEG frame
+    (its block transforms run there), and the frames come back as the same
+    numpy arrays: the real decode on the CPU, recorded around it."""
+    from vfisr_tpu_torch.data import jpeg
+
+    rng = np.random.default_rng(8)
+    frames = (smooth_frames(rng, 2, 48, 64) * 255).astype(np.uint8)
+    for name in ("pred", "gt"):
+        (tmp_path / name).mkdir()
+        for i, f in enumerate(frames):
+            cv2.imwrite(str(tmp_path / name / f"f_{i:04d}.jpg"), f)
+    want = [cv2.cvtColor(f, cv2.COLOR_BGR2RGB)
+            for f in (cv2.imread(str(tmp_path / "gt" / f"f_{i:04d}.jpg")) for i in range(2))]
+    seen, real = [], jpeg.decode
+
+    def decode(data, device="cuda"):
+        seen.append(str(device))
+        return real(data, device="cpu")
+
+    monkeypatch.setattr(jpeg, "decode", decode)
+    got = evaluate_quality.load_dir(tmp_path / "gt", device)
+    assert seen == [device] * 2
+    assert all(isinstance(g, np.ndarray) and np.array_equal(g, w) for g, w in zip(got, want))
+    # through the CLI: every frame of both directories on --device; the
+    # metrics stay on the CPU here
+    seen.clear()
+    monkeypatch.setattr("vfisr_tpu_torch.evaluation.QualityEvaluator.__init__",
+                        lambda self, dev: setattr(self, "_dev", dev) or None)
+    monkeypatch.setattr("vfisr_tpu_torch.evaluation.QualityEvaluator.evaluate",
+                        lambda self, p, g: type("R", (), dict(psnr=1.0, ssim=1.0, lpips=0.0))())
+    monkeypatch.setattr("vfisr_tpu_torch.evaluation.QualityEvaluator.lpips_mode", "stub",
+                        raising=False)
+    evaluate_quality.main(["--pred-dir", str(tmp_path / "pred"), "--gt-dir", str(tmp_path / "gt"),
+                           "--device", device])
+    assert seen == [device] * 4

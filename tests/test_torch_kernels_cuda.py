@@ -627,3 +627,123 @@ def test_tiled_kernel_at_the_default_tile_equals_the_tile_kernels(dt):
     torch.cuda.synchronize()
     assert torch.equal(out, tiled)
     assert torch.equal(c1, c2) and torch.equal(g1, g2)
+
+
+def _tiled_plan_cases():
+    """chip_smoke.py's step-27 cases and TILES at 270x700 (the CPU tests'
+    PLAN_CASES, tests/test_torch_tiles.py): (name, shape, window dtype, r,
+    tile)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_specs", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cases = [(sp["name"], sp["shape"], sp["compute_dtype"], sp["r"], sp["tile"])
+             for sp in mod.tiled_case_specs()]
+    cases.append(("k2_t8x128_r6_1080p", (1, 1080, 1920, 3), torch.float32, 6, (8, 128)))
+    cases += [(f"cuda_tiles_{t}", (2, 270, 700, 3), cd, (3, 4), t)
+              for t in TILES for cd in (torch.float32, torch.bfloat16)]
+    return cases
+
+
+@pytest.mark.cuda
+def test_tiled_plan_of_the_card_equals_tiled_plan():
+    """warp_tiled.cu's C plan (warp_tiled_plan) equals tiled_plan, its
+    Python mirror that the CPU tests check, at every case, K1 and K2."""
+    _needs_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, shape, cd, r, tile in _tiled_plan_cases():
+        img = torch.empty(shape, device="cuda")
+        for grad in (False, True):
+            got = tw.card_tiled_plan(img, r, cd, tile, grad)
+            assert got == tw.tiled_plan(shape, torch.float32, r, cd, tile, grad, sms), (name, grad)
+
+
+# (name, (n, h, w, c), tile, r, window dtype, img/flow dtype, flow amplitude, t)
+TILED_EDGES = [
+    ("t40x256_not_a_block_multiple", (2, 270, 700, 3), (40, 256), (3, 4), torch.float32,
+     torch.float32, 6.0, 1.0),
+    ("t104x640_not_a_block_multiple", (2, 270, 1300, 3), (104, 640), (2, 2), torch.bfloat16,
+     torch.float32, 6.0, 1.0),
+    ("t24x40", (2, 100, 170, 3), (24, 40), 2, torch.float32, torch.float32, 4.0, 0.6),
+    ("t40x1920_on_700_columns", (2, 120, 700, 3), (40, 1920), (3, 4), torch.bfloat16,
+     torch.float32, 6.0, 1.0),
+    ("past_the_window", (2, 272, 480, 3), (40, 256), (2, 2), torch.bfloat16, torch.float32,
+     25.0, 1.0),
+    ("bf16_img_and_flow", (2, 272, 480, 3), (16, 256), (3, 4), torch.bfloat16, torch.bfloat16,
+     6.0, 0.5),
+    ("per_image_t", (3, 270, 480, 3), (8, 640), (3, 4), torch.float32, torch.float32, 6.0,
+     (0.25, 0.5, 0.75)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("border", ["replicate", "constant"])
+@pytest.mark.parametrize("name,shape,tile,r,cd,dt,amp,t", TILED_EDGES,
+                         ids=[e[0] for e in TILED_EDGES])
+def test_tiled_kernel_equals_plain_at_the_edges(name, shape, tile, r, cd, dt, amp, t, border):
+    """K1 of warp_tiled.cu gives the twin's bits (max abs error 0) and its
+    origins equal window_origins: tiles that are not a multiple of the
+    plan's block, a tile wider than the image, flows past the window, bf16
+    image and flow, a t per image."""
+    _needs_card()
+    n, h, w, c = shape
+    rng = np.random.default_rng(23)
+    img = torch.from_numpy(rng.random(shape, np.float32)).cuda().to(dt)
+    flow = torch.from_numpy(smooth_flow(rng, n, h, w, amp, 1.0 + amp / 8)).cuda().to(dt)
+    t = torch.tensor(t, device="cuda") if isinstance(t, tuple) else t
+    before = tw.tiled_launches
+    out = tw.warp_windowed(img, flow, t, r, border, cd, tile)
+    ref = tw.warp_windowed_plain(img, flow, t, r, border, cd, tile=tile)
+    torch.cuda.synchronize()
+    assert tw.tiled_launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() == 0.0
+    ry, rx = (r, r) if isinstance(r, int) else r
+    t_arr = torch.as_tensor(t, dtype=torch.float32, device="cuda").reshape(-1).expand(n)
+    assert torch.equal(tw.kernel_origins(flow, t, r, cd, tile),
+                       tw.window_origins(flow, t_arr.contiguous(), ry, rx, cd == torch.bfloat16,
+                                         tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_tiled_kernels_at_176_channels(dt):
+    """K1 (bit for bit) and K2 (1e-5 of its scale) at SAFA's 176-channel
+    feature shape, tile 16x256, r = 8: the channel chunks' path."""
+    _needs_card()
+    rng = np.random.default_rng(29)
+    n, h, w, c = 3, 114, 144, 176
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda().to(dt)
+    ct = torch.from_numpy(rng.standard_normal((n, h, w, c)).astype(np.float32)).cuda().to(dt)
+    flow = torch.from_numpy(smooth_flow(rng, n, h, w, 6.0, 1.0)).cuda()
+    assert tw.card_tiled_plan(img, 8, torch.float32, (16, 256))["chunked"] == 1
+    out = tw.warp_windowed(img, flow, 0.8, 8, "replicate", torch.float32, (16, 256))
+    ref = tw.warp_windowed_plain(img, flow, 0.8, 8, "replicate", torch.float32, tile=(16, 256))
+    gflow, cg = tw.warp_windowed_grad(img, flow, 0.8, ct, 8, "replicate", torch.float32, (16, 256))
+    ref_gflow, ref_cg = tw.warp_windowed_grad_plain(img, flow, 0.8, ct, 8, "replicate",
+                                                    torch.float32, (16, 256))
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() == 0.0
+    scale = ref_cg.abs().max().item()
+    assert scale > 0
+    assert (cg - ref_cg).abs().max().item() <= 1e-5 * scale
+    assert (gflow - ref_gflow).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,tile", [(3, (8, 128)), (3, (40, 640)), (176, (16, 256))])
+def test_tiled_grad_kernel_twice_bit_identical(c, tile):
+    """K2 of warp_tiled.cu sums each pixel's channels in one thread, in
+    channel order (no atomics): two launches give the same bits."""
+    _needs_card()
+    rng = np.random.default_rng(31)
+    n, h, w = (1, 270, 700) if c == 3 else (2, 60, 90)
+    img = torch.from_numpy(rng.random((n, h, w, c), np.float32)).cuda()
+    ct = torch.from_numpy(rng.standard_normal((n, h, w, c)).astype(np.float32)).cuda()
+    flow = torch.from_numpy(smooth_flow(rng, n, h, w, 5.0, 1.0)).cuda()
+    a = tw.warp_windowed_grad(img, flow, 0.7, ct, 6, "constant", tile=tile)
+    b = tw.warp_windowed_grad(img, flow, 0.7, ct, 6, "constant", tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

@@ -9,9 +9,12 @@ tiles on both axes. Tolerances as tests/test_torch_warp.py's: 1e-5 in f32
 and horizontal sums); K2's derivatives 1e-4 of their scale (tests/
 test_pallas_warp.py's own tolerance for this tile and radius). The CUDA
 kernel for these tiles (csrc/warp_tiled.cu) is held against the twin on
-the card by test_torch_kernels_cuda.py and chip_smoke.py.
+the card by test_torch_kernels_cuda.py and chip_smoke.py; its plan
+(``tiled_plan``, the C plan's mirror) and the footprint each CTA copies
+are held here.
 """
 
+import importlib.util
 import zlib
 
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ import torch
 
 from _torch_port import one_torch_thread, rel_err, smooth_flow, windowed_reference  # noqa: F401
 from vfisr_tpu_torch.ops.cuda import warp as tw
+from vfisr_tpu_torch.utils.paths import REPO_ROOT
 
 TOL = {"f32": 1e-5, "bf16": 2.0 / 255.0}
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -152,3 +156,100 @@ def test_tiled_kernel_refuses_cpu_launch():
         tw.kernel_origins(flow, 1.0, 2, torch.float32, (8, 128))
     with pytest.raises(ValueError, match="positive"):
         tw.warp_windowed(img, flow, 1.0, 2, tile=(0, 128))
+
+
+# ---- warp_tiled.cu's plan and footprints ------------------------------------
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("_chip_smoke_specs", REPO_ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# every case of chip_smoke.py's step 27 (tiled_case_specs, and its K2 cases
+# at 8x128, r = 6 on 1080p), and test_torch_kernels_cuda.py's TILES at
+# 270x700 in its two window dtypes: (name, shape, window dtype, r, tile)
+PLAN_CASES = [(sp["name"], sp["shape"], sp["compute_dtype"], sp["r"], sp["tile"])
+              for sp in _chip_smoke().tiled_case_specs()]
+PLAN_CASES += [("k2_t8x128_r6_1080p", (1, 1080, 1920, 3), torch.float32, 6, (8, 128))]
+PLAN_CASES += [(f"cuda_tiles_{th}x{tw_}_{dt}", (2, 270, 700, 3), cd, (3, 4), (th, tw_))
+               for th, tw_ in ((8, 128), (16, 256), (40, 256), (40, 640), (104, 640), (104, 256),
+                               (40, 1920), (8, 640), (40, 960), (104, 960))
+               for dt, cd in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+SMEM_BLOCK = 227 * 1024  # the most shared memory one CTA can take on the H100
+
+
+def _footprint_misses(plan: dict, shape, cd, r, tile, flow: np.ndarray, t: float) -> int:
+    """Replays the twin's tap arithmetic (warp_windowed_plain's yi0, xi0
+    and the +1 taps) in numpy for image 0 and counts the taps outside the
+    footprint box of the CTA and slab that computes the pixel: content rows
+    [oy + r0 - pt, + rows + nsh_y - 1), columns [ox + cb - pl, + cols +
+    nsh_x - 1), r0 the slab's first tile row and cb the band's first tile
+    column, as warp_tiled.cu copies them."""
+    _, h, w, _ = shape
+    th, tw_ = tile
+    ry, rx = (r, r) if isinstance(r, int) else r
+    bf16 = cd == torch.bfloat16
+    pt, pl, nsh_y, nsh_x, (ylo, yhi, xlo, xhi) = tw._geometry(h, w, ry, rx, bf16, "replicate",
+                                                                tile)
+    org = tw.window_origins(torch.from_numpy(flow[None]), torch.tensor([t]), ry, rx, bf16,
+                            tile)[0].numpy().astype(np.int64)
+    ys, xs = np.arange(h), np.arange(w)
+    oy = org[..., 0][ys // th][:, xs // tw_]
+    ox = org[..., 1][ys // th][:, xs // tw_]
+    rows, cols = (ys % th)[:, None], (xs % tw_)[None, :]
+    f32 = np.float32
+    sy = ((pt + ys)[:, None] + flow[..., 1].astype(np.float64) * t).astype(f32)
+    sx = ((pl + xs)[None, :] + flow[..., 0].astype(np.float64) * t).astype(f32)
+    ry_max, rx_max = f32(nsh_y - 1.001), f32(nsh_x - 1.001)
+    ryr = (np.clip(sy, f32(ylo), f32(yhi)) - oy.astype(f32)) - rows.astype(f32)
+    rxr = (np.clip(sx, f32(xlo), f32(xhi)) - ox.astype(f32)) - cols.astype(f32)
+    yi0 = oy + rows + np.floor(np.clip(ryr, f32(0), ry_max)).astype(np.int64) - pt
+    xi0 = ox + cols + np.floor(np.clip(rxr, f32(0), rx_max)).astype(np.int64) - pl
+    # the pixel's CTA and slab
+    seg_rows = plan["rows"] if plan["chunked"] else -(-min(th, h) // plan["segments"])
+    rows_p = plan["rows"]
+    ra = (rows // seg_rows) * seg_rows
+    r0 = ra + ((rows - ra) // rows_p) * rows_p
+    seg_n = np.minimum(seg_rows, np.minimum(th, h - (ys // th)[:, None] * th) - ra)
+    rn = np.minimum(rows_p, seg_n - (r0 - ra))
+    cb = (cols // plan["cols"]) * plan["cols"]
+    cols_n = np.minimum(plan["cols"], np.minimum(tw_, w - (xs // tw_)[None, :] * tw_) - cb)
+    top, left = oy + r0 - pt, ox + cb - pl
+    miss_y = (yi0 < top) | (yi0 + 1 >= top + rn + nsh_y - 1)
+    miss_x = (xi0 < left) | (xi0 + 1 >= left + cols_n + nsh_x - 1)
+    return int((miss_y | miss_x).sum())
+
+
+@pytest.mark.parametrize("name,shape,cd,r,tile", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_tiled_plan_and_footprint(name, shape, cd, r, tile):
+    """tiled_plan (the C plan's mirror) at every step-27 and CUDA-test case:
+    K1's and K2's shared memory under the H100's 227 KB per CTA and two or
+    more CTAs per SM; the CTAs cover every pixel once; every tap of the
+    twin lies in the footprint its CTA copies, under a smooth flow and
+    under +-40 px flows far past the window (whose taps the residual clamp
+    keeps inside it: the copy does not depend on the flow)."""
+    n, h, w, c = shape
+    th, tw_ = tile
+    plans = [tw.tiled_plan(shape, torch.float32, r, cd, tile, grad) for grad in (False, True)]
+    for pl in plans:
+        assert pl is not None, name
+        assert pl["smem"] <= SMEM_BLOCK and pl["ctas_per_sm"] >= 2, pl
+        th_e, tw_e = min(th, h), min(tw_, w)
+        assert pl["bands"] * pl["cols"] >= tw_e > (pl["bands"] - 1) * pl["cols"], pl
+        assert pl["ctas"] == n * -(-h // th) * -(-w // tw_) * pl["bands"] * pl["segments"], pl
+        assert pl["fused"] == int(pl["bands"] == 1 and pl["segments"] == 1), pl
+        if pl["chunked"]:
+            assert pl["chunks"] * pl["chunk"] >= c and pl["slabs"] == 1, pl
+        else:
+            seg_rows = -(-th_e // pl["segments"])
+            assert pl["slabs"] * pl["rows"] >= seg_rows > (pl["slabs"] - 1) * pl["rows"], pl
+            assert pl["chunk"] == c and pl["chunks"] == 1, pl
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    t = 0.75
+    smooth = smooth_flow(rng, 1, h, w, 4.0, 0.5)[0]
+    far = rng.uniform(-40.0, 40.0, (h, w, 2)).astype(np.float32)
+    for pl in plans:
+        for flow in (smooth, far):
+            assert _footprint_misses(pl, shape, cd, r, tile, flow, t) == 0, (name, pl)

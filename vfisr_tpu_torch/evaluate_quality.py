@@ -8,8 +8,9 @@ Frames are the directories' PNGs in name order (``data/png.py``) or,
 where a directory has none, its ``*.jpg`` in name order, decoded by
 ``data/jpeg.py`` to ``cv2.imread``'s pixels, as the reference reads them.
 A JPEG layout the decoder lacks (progressive, arithmetic coded, ...)
-raises ``jpeg.UnsupportedJPEG``. The metrics run on ``--device`` (``cuda``
-by default; ``cpu`` for small runs).
+raises ``jpeg.UnsupportedJPEG``. The JPEG block transforms and the
+metrics run on ``--device`` (``cuda`` by default; ``cpu`` for small runs);
+only the Huffman decoding stays on the host.
 """
 
 import argparse
@@ -17,16 +18,17 @@ import json
 from pathlib import Path
 
 
-def load_dir(d) -> list:
+def load_dir(d, device="cpu") -> list:
     """The directory's PNG frames, or failing those its JPEG frames
-    (``*.jpg``), as HWC uint8 RGB numpy arrays in name order."""
+    (``*.jpg``, their block transforms on ``device``), as HWC uint8 RGB
+    numpy arrays in name order."""
     from vfisr_tpu_torch.data import jpeg
     from vfisr_tpu_torch.data.png import read_png
 
     paths = sorted(Path(d).glob("*.png"))
     if paths:
         return [read_png(p) for p in paths]
-    return [jpeg.decode(p.read_bytes(), device="cpu").numpy()
+    return [jpeg.decode(p.read_bytes(), device=device).cpu().numpy()
             for p in sorted(Path(d).glob("*.jpg"))]
 
 
@@ -41,8 +43,8 @@ def main(argv=None):
                         help="torch device: cuda (default) or cpu (small runs)")
     args = parser.parse_args(argv)
 
-    pred = load_dir(args.pred_dir)
-    gt = load_dir(args.gt_dir)
+    pred = load_dir(args.pred_dir, args.device)
+    gt = load_dir(args.gt_dir, args.device)
     if not pred or not gt:
         raise SystemExit("no frames found")
     n = min(len(pred), len(gt))

@@ -44,9 +44,12 @@ added in chunk order by a second kernel (deterministic, no atomics).
 
 Tiles. The kernels above are built for the 32x256 tile (``TILE``); every
 call at that tile goes to them. A call at any other ``tile`` goes to
-``csrc/warp_tiled.cu`` (its own library, ``build_tiled``): an origins pass
-that takes (th, tw) at run time, then one thread per output pixel looping
-over the channels, K1 and K2 from one template. Its launches add to
+``csrc/warp_tiled.cu`` (its own library, ``build_tiled``), K1 and K2 from
+one template with (th, tw) at run time: a CTA walks a band of a tile's
+columns in slabs of rows through a ring of image rows in shared memory
+(whole C), or channel chunks of a narrower block through two slots; it
+computes its tile's origin in its prologue where it holds the whole tile,
+else an origins pass fills a table first (``tiled_plan``). Its launches add to
 ``launches``/``grad_launches`` as the others' do, and to
 ``tiled_launches``/``tiled_grad_launches``. ``launch_tiled`` and
 ``launch_grad_tiled`` launch it at any tile, 32x256 included (the checks
@@ -155,8 +158,9 @@ def build_tiled() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_compile(TILED_SOURCE)))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.warp_tiled_origins_launch.argtypes = [p, p, f, i, p, p] + [i] * 11 + [p]
-    lib.warp_tiled_launch.argtypes = [p, p, p, f, i, p, p, p, p, p] + [i] * 15 + [f] * 6 + [p]
-    for fn in (lib.warp_tiled_origins_launch, lib.warp_tiled_launch):
+    lib.warp_tiled_launch.argtypes = [p, p, p, f, i, p, p, p, p, p, p] + [i] * 17 + [f] * 6 + [p]
+    lib.warp_tiled_plan.argtypes = [i] * 10 + [p]
+    for fn in (lib.warp_tiled_origins_launch, lib.warp_tiled_launch, lib.warp_tiled_plan):
         fn.restype = ctypes.c_int
     _tiled_lib = lib
     return lib
@@ -328,6 +332,157 @@ def plan(img: torch.Tensor, r, compute_dtype: torch.dtype, grad: bool = False):
                  *img.shape, img.dtype == torch.bfloat16, nsh_y, nsh_x, grad)
 
 
+TILED_PLAN_FIELDS = ("rows", "cols", "bands", "segments", "slabs", "chunked", "chunk", "chunks",
+                     "slots", "ring_rows", "smem", "ctas", "ctas_per_sm", "fused")
+SMS = 132  # the H100's SMs: tiled_plan's default card
+# csrc/warp_tiled.cu's plan constants
+_T_MAX_W, _T_MAX_R, _T_CHUNK_W, _T_CHUNK_R = 256, 32, 32, 16
+_T_MAX_VEC, _T_WAVE, _T_CELLS, _T_FUSE_CELLS = 8, 4, 256, 64
+_T_SMEM_CTA, _T_SMEM_SM, _T_STATIC = 72 * 1024, 228 * 1024, 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _r16(b: int) -> int:
+    return _cdiv(b, 16) * 16
+
+
+def _tiled_layout(q: dict, nsh_y: int, nsh_x: int, c: int, b: int, grad: bool) -> int:
+    """warp_tiled.cu's ``layout``: the ring, its row offsets, K2's
+    cotangent slots and K1's staging; returns the shared bytes."""
+    f, wf = q["rows"] + nsh_y - 1, q["cols"] + nsh_x - 1
+    if not q["chunked"]:
+        q["ring_rows"] = 2 * q["rows"] + nsh_y - 1 if q["slabs"] > 1 else f
+        pitch = _r16(wf * c * b) + 32
+        ct_pitch = _r16(q["cols"] * c * b) + 32
+    else:
+        q["ring_rows"] = q["slots"] * f
+        px = q["cvec"] * 16 + (0 if q["cvec"] & 1 else 16)
+        pitch, ct_pitch = wf * px, q["cols"] * px
+    ct_slots = q["slots"] if grad else 0
+    stage_off = (_r16(4 * q["ring_rows"]) + q["ring_rows"] * pitch
+                 + _r16(4 * ct_slots * q["rows"]) + ct_slots * q["rows"] * ct_pitch)
+    stage = 0 if grad else 8 * 32 * (q["cvec"] * (16 // b) if q["chunked"] else c) * b
+    return stage_off + stage
+
+
+def tiled_plan(shape, img_dtype: torch.dtype, r, compute_dtype: torch.dtype, tile,
+               grad: bool = False, sms: int = SMS):
+    """How ``csrc/warp_tiled.cu`` takes a launch on img of ``shape``
+    [N,H,W,C] at ``tile`` on a card of ``sms`` SMs: a dict of
+    TILED_PLAN_FIELDS, or None where the kernels refuse it. The same
+    integer arithmetic as the C plan (``warp_tiled_plan``; the CUDA tests
+    hold the two equal), so the CPU tests reach it.
+
+    Per tile, ``bands`` bands of ``cols`` columns and ``segments`` row
+    segments, one CTA each, walked in ``slabs`` slabs of ``rows`` rows
+    through a ring of ``ring_rows`` image rows; ``chunked`` 1: channel
+    chunks of ``chunk`` channels, ``chunks`` per pixel, through ``slots``
+    ring slots; ``smem`` dynamic shared bytes per CTA, ``ctas`` of the
+    launch, ``ctas_per_sm`` by shared memory; ``fused`` 1: one CTA per
+    tile computes its origin in its prologue (else an origins pass)."""
+    n, h, w, c = (int(v) for v in shape)
+    th, tw = _tile(tile)
+    ry, rx = _radii(r)
+    b = 2 if img_dtype == torch.bfloat16 else 4
+    nsh_y = 2 * ry + 2 + (1 if compute_dtype == torch.bfloat16 else 0)
+    nsh_x = 2 * rx + 2
+    if min(n, h, w, c) <= 0 or min(nsh_y, nsh_x) < 2 or sms <= 0:
+        return None
+    tiles = n * _cdiv(h, th) * _cdiv(w, tw)
+    th_e, tw_e = min(th, h), min(tw, w)
+    q = dict(chunked=0, cvec=0, chunks=1, slots=1)
+    q["bands"] = _cdiv(tw_e, _T_MAX_W)
+    q["cols"] = tw_e if q["bands"] == 1 else _cdiv(_cdiv(tw_e, q["bands"]), 32) * 32
+    q["bands"] = _cdiv(tw_e, q["cols"])
+    # a whole tile's CTA fuses its origin only where that is one batch of
+    # cells per warp; else the tile is cut in two bands (or segments)
+    g = 1
+    while th % (2 * g) == 0 and tw % (2 * g) == 0:
+        g *= 2
+    segs = 1
+    if q["bands"] == 1 and (th // g) * (tw // g) > _T_FUSE_CELLS:
+        if tw_e >= 64:
+            q["cols"] = _cdiv(_cdiv(tw_e, 2), 32) * 32
+            q["bands"] = _cdiv(tw_e, q["cols"])
+        elif th_e >= 2:
+            segs = 2
+    while tiles * q["bands"] * segs < _T_WAVE * sms and segs < th_e:
+        segs *= 2
+    q["seg_rows"] = _cdiv(th_e, segs)
+    q["segments"] = _cdiv(th_e, q["seg_rows"])
+    best = 0
+    for rows in range(1, min(_T_MAX_R, q["seg_rows"]) + 1):
+        q["rows"], q["slabs"] = rows, _cdiv(q["seg_rows"], rows)
+        q["slots"] = 2 if q["slabs"] > 1 else 1
+        if _tiled_layout(q, nsh_y, nsh_x, c, b, grad) <= _T_SMEM_CTA:
+            best = rows
+    if best:
+        q["slabs"] = _cdiv(q["seg_rows"], best)
+        q["rows"] = _cdiv(q["seg_rows"], q["slabs"])
+        q["slabs"] = _cdiv(q["seg_rows"], q["rows"])
+        q["slots"] = 2 if q["slabs"] > 1 else 1
+    else:
+        q["chunked"] = 1
+        q["cols"] = min(tw_e, _T_CHUNK_W)
+        q["bands"] = _cdiv(tw_e, q["cols"])
+        groups = _cdiv(c * b, 16)
+        fit, rows = False, min(th_e, _T_CHUNK_R)
+        while rows >= 1 and not fit:
+            q["rows"] = rows
+            v = _T_MAX_VEC
+            while v >= 1:
+                if not (v > groups and v > 1):
+                    q["cvec"], q["chunks"] = v, _cdiv(groups, v)
+                    q["slots"] = 2 if q["chunks"] > 1 else 1
+                    if _tiled_layout(q, nsh_y, nsh_x, c, b, grad) <= _T_SMEM_CTA:
+                        fit = True
+                        break
+                v //= 2
+            rows //= 2
+        if not fit:
+            return None
+        q["seg_rows"] = q["rows"]
+        q["segments"] = _cdiv(th_e, q["rows"])
+        q["slabs"] = 1
+    q["fused"] = int(q["bands"] == 1 and q["segments"] == 1)
+    smem = _tiled_layout(q, nsh_y, nsh_x, c, b, grad)
+    if q["fused"]:
+        smem = max(smem, 2 * _T_CELLS * 8)
+    if _cdiv(h, th) * q["segments"] > 65535:
+        return None
+    chunk = q["cvec"] * (16 // b) if q["chunked"] else c
+    return dict(rows=q["rows"], cols=q["cols"], bands=q["bands"], segments=q["segments"],
+                slabs=q["slabs"], chunked=q["chunked"], chunk=min(chunk, c),
+                chunks=q["chunks"], slots=q["slots"], ring_rows=q["ring_rows"], smem=smem,
+                ctas=tiles * q["segments"] * q["bands"],
+                ctas_per_sm=_T_SMEM_SM // (smem + _T_STATIC + 1024), fused=q["fused"])
+
+
+@functools.lru_cache(maxsize=None)
+def _card_tiled_plan(device_index: int, n, h, w, c, img_bf16: bool, th, tw, nsh_y, nsh_x,
+                     grad: bool):
+    lib = build_tiled()
+    out = (ctypes.c_longlong * len(TILED_PLAN_FIELDS))()
+    with torch.cuda.device(device_index):
+        err = lib.warp_tiled_plan(n, h, w, c, int(img_bf16), th, tw, nsh_y, nsh_x, int(grad), out)
+    return None if err else dict(zip(TILED_PLAN_FIELDS, out))
+
+
+def card_tiled_plan(img: torch.Tensor, r, compute_dtype: torch.dtype, tile, grad: bool = False):
+    """``warp_tiled.cu``'s own plan (``warp_tiled_plan``) of a launch on
+    img [N,H,W,C] on its CUDA card: what ``tiled_plan`` mirrors."""
+    ry, rx = _radii(r)
+    th, tw = _tile(tile)
+    _, _, nsh_y, nsh_x, _ = _geometry(img.shape[1], img.shape[2], ry, rx,
+                                      compute_dtype == torch.bfloat16, "replicate", (th, tw))
+    return _card_tiled_plan(img.device.index if img.device.index is not None
+                            else torch.cuda.current_device(), *img.shape,
+                            img.dtype == torch.bfloat16, th, tw, nsh_y, nsh_x, grad)
+
+
 def warp_windowed(img: torch.Tensor, flow: torch.Tensor, t=1.0, r=8,
                   border: str = "replicate",
                   compute_dtype: torch.dtype = torch.float32, tile=TILE) -> torch.Tensor:
@@ -479,7 +634,7 @@ def kernel_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype,
     """The window origins K1 and K2 compute in their prologue, from the
     same device function, for flow [N,H,W,2] on a CUDA card: [N, TY, TX, 2]
     int32 (oy, ox), canvas coordinates, as ``window_origins`` gives them
-    (at a tile other than ``TILE``: ``warp_tiled.cu``'s origins pass).
+    (at a tile other than ``TILE``: ``warp_tiled.cu``'s, ``_tiled_origins``).
     A check of the kernels (chip_smoke.py, the CUDA tests): the warp's
     output alone can hide an origin one pixel off. The main path never
     calls it. Raises on a CPU tensor: the kernels have no CPU mode."""
@@ -490,7 +645,7 @@ def kernel_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype,
         raise ValueError(f"kernel_origins needs a contiguous f32 or bf16 flow; got {flow.dtype}")
     tile = _tile(tile)
     if tile != TILE:
-        return _tiled_origins(flow, t, r, compute_dtype, tile)[0]
+        return _tiled_origins(flow, t, r, compute_dtype, tile)
     n, h, w, _ = flow.shape
     ry, rx = _radii(r)
     pt, pl = _content_origin(ry, rx)
@@ -509,23 +664,32 @@ def kernel_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype,
     return origin
 
 
-def _tiled_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype, tile) -> tuple:
-    """Run ``warp_tiled.cu``'s origins pass for flow [N,H,W,2] on its CUDA
-    card at tile (th, tw): (origin [N, TY, TX, 2] int32, the t tensor the
-    kernels read, or None for a number: kept alive across the launches)."""
-    n, h, w, _ = flow.shape
-    ry, rx = _radii(r)
+def _origin_scratch(n: int, h: int, w: int, tile, device) -> tuple:
+    """The origins pass's outputs for flow [n,h,w,2] at tile: (cells, f32
+    [n, TY, TX, (th/g)*(tw/g), 2], the cell means; origin [n, TY, TX, 2]
+    int32)."""
     th, tw = tile
-    pt, pl = _content_origin(ry, rx, tile)
     g = 1
     while th % (2 * g) == 0 and tw % (2 * g) == 0:
         g *= 2
     ty_n, tx_n = -(-h // th), -(-w // tw)
-    origin = torch.empty((n, ty_n, tx_n, 2), dtype=torch.int32, device=flow.device)
     cells = torch.empty((n, ty_n, tx_n, (th // g) * (tw // g), 2), dtype=torch.float32,
-                        device=flow.device)
+                        device=device)
+    return cells, torch.empty((n, ty_n, tx_n, 2), dtype=torch.int32, device=device)
+
+
+def _tiled_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype, tile) -> torch.Tensor:
+    """The window origins ``warp_tiled.cu``'s kernels compute, for flow
+    [N,H,W,2] on its CUDA card at tile (th, tw): origin [N, TY, TX, 2] int32
+    (oy, ox); by ``tile_origin`` (the fused prologue's function) where a tile
+    has at most 64 cells, else by the origins pass a launch runs first."""
+    n, h, w, _ = flow.shape
+    ry, rx = _radii(r)
+    pt, pl = _content_origin(ry, rx, tile)
+    th, tw = tile
+    cells, origin = _origin_scratch(n, h, w, tile, flow.device)
     lib = build_tiled()
-    t_args, keep = _t_args(t, n, flow.device)
+    t_args, _keep = _t_args(t, n, flow.device)
     with torch.cuda.device(flow.device):
         stream = torch.cuda.current_stream(flow.device).cuda_stream
         err = lib.warp_tiled_origins_launch(
@@ -534,29 +698,36 @@ def _tiled_origins(flow: torch.Tensor, t, r, compute_dtype: torch.dtype, tile) -
             rx, pt, pl, stream)
     if err != 0:
         raise RuntimeError(f"warp_tiled origins launch failed: cudaError {err}")
-    return origin, keep
+    return origin
 
 
 def _tiled(img, flow, t, r, border, compute_dtype, tile, ct=None, out=None, cg=None,
            grad_flow=None) -> None:
-    """Launch ``warp_tiled.cu``: its origins pass, then K1 (out) or, with
-    ct, K2 (cg, grad_flow) at tile, on checked contiguous CUDA tensors."""
+    """Launch ``warp_tiled.cu``'s K1 (out) or, with ct, K2 (cg, grad_flow)
+    at tile, on checked contiguous CUDA tensors; where its plan is not
+    fused, the call first runs the origins pass into scratch allocated
+    here (the cell means and the origin table)."""
     tile = _tile(tile)
-    origin, _keep = _tiled_origins(flow, t, r, compute_dtype, tile)
     lib = build_tiled()
     t_args, _keep_t = _t_args(t, img.shape[0], img.device)
     grad = ct is not None
     args = _launch_args(img, flow, r, border, compute_dtype, tile)
-    n, h, w, c, img_bf16, flow_bf16, bf16, constant, ry, rx, pt, pl = args[:12]
+    n, h, w, c, img_bf16, flow_bf16, bf16, constant, ry, rx, pt, pl, nsh_y, nsh_x = args[:14]
     clip = args[14:]
+    pl_ = card_tiled_plan(img, r, compute_dtype, tile, grad)
+    if pl_ is None:
+        raise RuntimeError(f"warp_tiled refuses img {tuple(img.shape)} at tile {tile}, r {r}")
+    cells, origin = (None, None) if pl_["fused"] else _origin_scratch(n, h, w, tile, img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.warp_tiled_launch(
-            img.data_ptr(), flow.data_ptr(), *t_args, origin.data_ptr(),
+            img.data_ptr(), flow.data_ptr(), *t_args,
+            None if cells is None else cells.data_ptr(),
+            None if origin is None else origin.data_ptr(),
             ct.data_ptr() if grad else None, None if grad else out.data_ptr(),
             cg.data_ptr() if grad else None, grad_flow.data_ptr() if grad else None,
             n, h, w, c, img_bf16, flow_bf16, bf16, constant, int(grad), tile[0], tile[1], ry, rx,
-            pt, pl, *clip, stream)
+            pt, pl, nsh_y, nsh_x, *clip, stream)
     if err != 0:
         raise RuntimeError(f"warp_tiled {'grad ' if grad else ''}kernel launch failed: "
                            f"cudaError {err}")
