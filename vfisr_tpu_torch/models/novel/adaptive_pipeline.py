@@ -42,6 +42,7 @@ from vfisr_tpu_torch.ops.conv import laplacian
 from vfisr_tpu_torch.ops.flow import farneback_flow
 from vfisr_tpu_torch.ops.morphology import morph_close, morph_open
 from vfisr_tpu_torch.ops.ssim import ssim as ssim_windowed
+from vfisr_tpu_torch.utils.spans import span
 
 _HUD_RES = (180, 320)  # the reference's 320x180 HUD analysis frames
 
@@ -130,8 +131,10 @@ def _analyze_core(f0: torch.Tensor, f1: torch.Tensor, history: torch.Tensor,
     sh, sw = max(h // 4, 7), max(w // 4, 7)
     s0 = resize(g0[..., None], (sh, sw), "linear")[..., 0]
     s1 = resize(g1[..., None], (sh, sw), "linear")[..., 0]
-    flow_small = resize(flow, (sh, sw), "linear") * torch.tensor(
-        [sw / w, sh / h], dtype=flow.dtype, device=flow.device)
+    flow_small = resize(flow, (sh, sw), "linear")
+    with span("sync"):
+        to_small = torch.tensor([sw / w, sh / h], dtype=flow.dtype, device=flow.device)
+    flow_small = flow_small * to_small
     is_scene, ssim_score, warped_ssim = scene_cut_signals(s0, s1, flow_small, scene_thr,
                                                           scene_warp_thr)
 
@@ -225,12 +228,14 @@ class AdaptiveRouter:
 
     def analyze_device(self, x0: torch.Tensor, x1: torch.Tensor) -> dict:
         """Batched analysis on x0's device; advances the HUD history with x0."""
-        self._ensure_history(x0.shape[0], x0.device)
-        self._history, self._history_count = _push_history(self._history, self._history_count, x0)
-        return _analyze_core(x0, x1, self._history, self._history_count,
-                             self.scene_change_threshold, self.scene_warp_ssim_threshold,
-                             self.particle_threshold, self.hud_variance_threshold,
-                             self.hud_agree_eps)
+        with span("analysis"):
+            self._ensure_history(x0.shape[0], x0.device)
+            self._history, self._history_count = _push_history(self._history,
+                                                               self._history_count, x0)
+            return _analyze_core(x0, x1, self._history, self._history_count,
+                                 self.scene_change_threshold, self.scene_warp_ssim_threshold,
+                                 self.particle_threshold, self.hud_variance_threshold,
+                                 self.hud_agree_eps)
 
     def _bin_winner_native(self, motion_mean: float) -> Optional[str]:
         """The measured-best expert at this motion (native regime), or None
@@ -248,9 +253,13 @@ class AdaptiveRouter:
         scene = sig["is_scene_change"]
         use_mamba = sig["has_particles"] | (sig["motion_max"] > self.motion_threshold_high)
         if self.quality_aware:
-            winners = [self._bin_winner_native(float(m)) for m in sig["motion_mean"].tolist()]
+            with span("sync"):
+                motion = sig["motion_mean"].tolist()
+            winners = [self._bin_winner_native(float(m)) for m in motion]
             if any(w is not None for w in winners):
-                use_mamba = torch.tensor([w == "vfimamba" for w in winners], device=scene.device)
+                flags = [w == "vfimamba" for w in winners]
+                with span("sync"):
+                    use_mamba = torch.tensor(flags, device=scene.device)
         return {"scene": scene, "vfimamba": use_mamba & ~scene, "rife": ~use_mamba & ~scene}
 
     # ---- per-pair numpy API ----
@@ -307,11 +316,12 @@ def _composite_outputs(rife_out: torch.Tensor, mamba_out: torch.Tensor, x0: torc
                        timestamps: Tuple[float, ...]) -> torch.Tensor:
     """Branchless select: expert choice, scene-cut repeat of x0, and HUD
     compositing (source x0 for t < 0.5, else x1). Outputs [N,T,H,W,3]."""
-    sel = torch.where(masks_mamba[:, None, None, None, None], mamba_out, rife_out)
-    sel = torch.where(masks_scene[:, None, None, None, None], x0[:, None].expand_as(sel), sel)
-    hud = ((hud_coverage > 0.01)[:, None, None] & hud_mask)[..., None]
-    return torch.stack([torch.where(hud, x0 if t < 0.5 else x1, sel[:, i])
-                        for i, t in enumerate(timestamps)], dim=1)
+    with span("composite"):
+        sel = torch.where(masks_mamba[:, None, None, None, None], mamba_out, rife_out)
+        sel = torch.where(masks_scene[:, None, None, None, None], x0[:, None].expand_as(sel), sel)
+        hud = ((hud_coverage > 0.01)[:, None, None] & hud_mask)[..., None]
+        return torch.stack([torch.where(hud, x0 if t < 0.5 else x1, sel[:, i])
+                            for i, t in enumerate(timestamps)], dim=1)
 
 
 class AdaptivePipeline(BaseModel):
@@ -425,14 +435,19 @@ class AdaptivePipeline(BaseModel):
         if self.route_mode == "masked" and self.enable_vfimamba:
             rife_out = self._rife.interpolate_batch(x0, x1, timestamps)
             mamba_out = self._vfimamba.interpolate_batch(x0, x1, timestamps)
-            self._count(*torch.stack([masks["scene"], masks["vfimamba"]]).cpu().numpy())
+            both = torch.stack([masks["scene"], masks["vfimamba"]])
+            with span("sync"):
+                both = both.cpu().numpy()
+            self._count(*both)
             return _composite_outputs(rife_out, mamba_out, x0, x1, masks["scene"],
                                       masks["vfimamba"], sig["hud_mask"], sig["hud_coverage"],
                                       timestamps)
         # hosted: one mask readback, then each expert on the contiguous runs
         # of pairs routed to it; scene-cut rows skip the experts and are
         # replaced by the composite
-        scene_np, mamba_np = torch.stack([masks["scene"], masks["vfimamba"]]).cpu().numpy()
+        both = torch.stack([masks["scene"], masks["vfimamba"]])
+        with span("sync"):
+            scene_np, mamba_np = both.cpu().numpy()
         if not self.enable_vfimamba:
             mamba_np = np.zeros(n, bool)
         routes = np.where(scene_np, 0, np.where(mamba_np, 2, 1))
@@ -463,10 +478,11 @@ class AdaptivePipeline(BaseModel):
 
     def upscale_batch(self, x: torch.Tensor, scale: float = 1.333) -> torch.Tensor:
         """SPAN x2 then Lanczos4 with sr_model_name="span", else Lanczos4."""
-        if self._sr is not None:
-            return self._sr.upscale_batch(x, scale)
-        h, w = x.shape[-3:-1]
-        return resize(x, scale_size(h, w, scale), "lanczos4")
+        with span("sr"):
+            if self._sr is not None:
+                return self._sr.upscale_batch(x, scale)
+            h, w = x.shape[-3:-1]
+            return resize(x, scale_size(h, w, scale), "lanczos4")
 
     def upscale(self, frame: np.ndarray, scale: float = 1.333) -> np.ndarray:
         self.ensure_loaded()

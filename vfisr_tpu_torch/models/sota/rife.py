@@ -26,6 +26,7 @@ from vfisr_tpu_torch.core.frames import from_batched, pad_to_multiple, to_batche
 from vfisr_tpu_torch.core.resize import resize, scale_size
 from vfisr_tpu_torch.core.warp import backward_warp
 from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, upscale_frame
+from vfisr_tpu_torch.utils.spans import span
 
 
 @dataclass(frozen=True)
@@ -373,13 +374,16 @@ class RIFEModel(BaseModel):
         pad = max(self.PAD_MULTIPLE, max(scales))
         n, h, w, _ = x0.shape
         t = len(timestamps)
-        x0p, _ = pad_to_multiple(x0, pad)
-        x1p, _ = pad_to_multiple(x1, pad)
-        ts = torch.tensor(timestamps, dtype=x0.dtype, device=x0.device).repeat(n)
-        with torch.no_grad():
-            merged = self.module(x0p.repeat_interleave(t, 0), x1p.repeat_interleave(t, 0), ts,
-                                 scales=scales)[0]
-        return unpad(merged, h, w).reshape(n, t, h, w, 3)
+        with span("ifnet"):
+            x0p, _ = pad_to_multiple(x0, pad)
+            x1p, _ = pad_to_multiple(x1, pad)
+            with span("sync"):
+                ts = torch.tensor(timestamps, dtype=x0.dtype, device=x0.device)
+            ts = ts.repeat(n)
+            with torch.no_grad():
+                merged = self.module(x0p.repeat_interleave(t, 0), x1p.repeat_interleave(t, 0), ts,
+                                     scales=scales)[0]
+            return unpad(merged, h, w).reshape(n, t, h, w, 3)
 
     def interpolate(self, frame0: np.ndarray, frame1: np.ndarray, num_frames: int = 3,
                     timestamps=None, scale: Optional[float] = None) -> List[np.ndarray]:

@@ -52,6 +52,7 @@ from vfisr_tpu_torch.core.frames import pad_to_multiple, unpad
 from vfisr_tpu_torch.core.resize import resize, scale_size
 from vfisr_tpu_torch.core.warp import backward_warp
 from vfisr_tpu_torch.models.base import BaseModel, ModelInfo, planned_conv, upscale_frame
+from vfisr_tpu_torch.utils.spans import span
 
 SCAN_CHUNK = 32  # steps of L per chunk of the selective scan
 
@@ -160,9 +161,10 @@ def selective_scan(dt: torch.Tensor, A: torch.Tensor, u: torch.Tensor, B: torch.
     [R, L, Di, S]. Differentiable (``_SelectiveScan``) where an input needs
     a gradient; otherwise the loop alone, which saves nothing.
     """
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (dt, A, u, B, C)):
-        return _SelectiveScan.apply(dt, A, u, B, C)
-    return _scan(dt, A, u, B, C)
+    with span("scan"):
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (dt, A, u, B, C)):
+            return _SelectiveScan.apply(dt, A, u, B, C)
+        return _scan(dt, A, u, B, C)
 
 
 class S6(nn.Module):
@@ -394,6 +396,10 @@ class VFIMambaModel(BaseModel):
     def interpolate_batch(self, x0: torch.Tensor, x1: torch.Tensor, timestamps) -> torch.Tensor:
         """[N,H,W,3] pair -> [N,T,H,W,3]: one net call on the N*T batch
         (pair-major), padded to a multiple of 32."""
+        with span("vfimamba"):
+            return self._interpolate(x0, x1, timestamps)
+
+    def _interpolate(self, x0: torch.Tensor, x1: torch.Tensor, timestamps) -> torch.Tensor:
         n, h, w, _ = x0.shape
         t = len(timestamps)
         cap = self.max_internal_area
@@ -403,13 +409,15 @@ class VFIMambaModel(BaseModel):
             # rounds back over it and recurses without end)
             s = (cap / float(h * w)) ** 0.5
             ih, iw = int(h * s), int(w * s)
-            out = self.interpolate_batch(resize(x0, (ih, iw), "area"),
-                                         resize(x1, (ih, iw), "area"), timestamps)
+            out = self._interpolate(resize(x0, (ih, iw), "area"),
+                                    resize(x1, (ih, iw), "area"), timestamps)
             up = resize(out.reshape(n * t, ih, iw, 3), (h, w), "lanczos4")
             return torch.clamp(up, 0.0, 1.0).reshape(n, t, h, w, 3)
         x0p, _ = pad_to_multiple(x0, 32)
         x1p, _ = pad_to_multiple(x1, 32)
-        ts = torch.tensor(timestamps, dtype=x0.dtype, device=x0.device).repeat(n)
+        with span("sync"):
+            ts = torch.tensor(timestamps, dtype=x0.dtype, device=x0.device)
+        ts = ts.repeat(n)
         with torch.no_grad():
             merged = self.module(x0p.repeat_interleave(t, 0), x1p.repeat_interleave(t, 0), ts)[0]
         return unpad(merged, h, w).reshape(n, t, h, w, 3)

@@ -34,6 +34,7 @@ from vfisr_tpu_torch.models.sota.rife import IFNet, RIFEConfig, RIFEModel, share
 from vfisr_tpu_torch.ops.conv import laplacian
 from vfisr_tpu_torch.ops.flow import farneback_flow
 from vfisr_tpu_torch.ops.morphology import morph_close, morph_open
+from vfisr_tpu_torch.utils.spans import span
 
 
 @dataclass(frozen=True)
@@ -125,40 +126,48 @@ def make_flagship_step(module: IFNet, cfg: FlagshipConfig = FlagshipConfig()):
     @torch.no_grad()
     def step(x0, x1, hist, hcnt):
         p, h, w, _ = x0.shape
-        hist, hcnt = push_history(hist, hcnt, x0)
-        sig = analyze_small(x0, x1, hist, hcnt, cfg)
+        with span("analysis"):
+            hist, hcnt = push_history(hist, hcnt, x0)
+            sig = analyze_small(x0, x1, hist, hcnt, cfg)
 
-        x0p, _ = pad_to_multiple(x0, 32)
-        x1p, _ = pad_to_multiple(x1, 32)
-        if cfg.shared_flow:
-            # one IFNet trunk pass, every timestep from its flow
-            merged = shared_flow_apply(module, x0p, x1p, ts_tuple)
-        else:
-            # each pair repeated T times, the timestamps tiled pair-major
-            ts = torch.tensor(ts_tuple, dtype=x0.dtype, device=x0.device).repeat(p)
-            merged = module(x0p.repeat_interleave(t_count, 0), x1p.repeat_interleave(t_count, 0),
-                            ts)[0]
-        mids = unpad(merged, h, w)  # [P*T,H,W,3]
+        with span("ifnet"):
+            x0p, _ = pad_to_multiple(x0, 32)
+            x1p, _ = pad_to_multiple(x1, 32)
+            if cfg.shared_flow:
+                # one IFNet trunk pass, every timestep from its flow
+                merged = shared_flow_apply(module, x0p, x1p, ts_tuple)
+            else:
+                # each pair repeated T times, the timestamps tiled pair-major
+                with span("sync"):
+                    ts = torch.tensor(ts_tuple, dtype=x0.dtype, device=x0.device)
+                ts = ts.repeat(p)
+                merged = module(x0p.repeat_interleave(t_count, 0),
+                                x1p.repeat_interleave(t_count, 0), ts)[0]
+            mids = unpad(merged, h, w)  # [P*T,H,W,3]
 
-        # branchless scene-cut repeat of x0
-        scene = sig["is_scene_change"].repeat_interleave(t_count)
-        x0_rep = x0.repeat_interleave(t_count, 0)
-        mids = torch.where(scene[:, None, None, None], x0_rep, mids)
+        with span("composite"):
+            # branchless scene-cut repeat of x0
+            scene = sig["is_scene_change"].repeat_interleave(t_count)
+            x0_rep = x0.repeat_interleave(t_count, 0)
+            mids = torch.where(scene[:, None, None, None], x0_rep, mids)
 
-        # branchless HUD composite: source x0 for t<0.5 else x1, where the
-        # coverage passes its threshold
-        hud_full = resize(sig["hud_mask_small"][..., None].float(), (h, w), "nearest")[..., 0] > 0.5
-        if cfg.hud_agree_eps > 0:
-            g0f = rgb_to_gray(x0 * 255.0)
-            g1f = rgb_to_gray(x1 * 255.0)
-            hud_full = hud_full & (torch.abs(g0f - g1f) <= cfg.hud_agree_eps)
-        apply_hud = sig["hud_coverage"] > cfg.hud_coverage_threshold
-        hud_rep = (hud_full & apply_hud[:, None, None]).repeat_interleave(t_count, 0)
-        src = torch.stack([x0 if t < 0.5 else x1 for t in ts_tuple], dim=1).reshape(p * t_count, h, w, 3)
-        mids = torch.where(hud_rep[..., None], src, mids)
+            # branchless HUD composite: source x0 for t<0.5 else x1, where the
+            # coverage passes its threshold
+            hud_full = resize(sig["hud_mask_small"][..., None].float(), (h, w),
+                              "nearest")[..., 0] > 0.5
+            if cfg.hud_agree_eps > 0:
+                g0f = rgb_to_gray(x0 * 255.0)
+                g1f = rgb_to_gray(x1 * 255.0)
+                hud_full = hud_full & (torch.abs(g0f - g1f) <= cfg.hud_agree_eps)
+            apply_hud = sig["hud_coverage"] > cfg.hud_coverage_threshold
+            hud_rep = (hud_full & apply_hud[:, None, None]).repeat_interleave(t_count, 0)
+            src = torch.stack([x0 if t < 0.5 else x1 for t in ts_tuple],
+                              dim=1).reshape(p * t_count, h, w, 3)
+            mids = torch.where(hud_rep[..., None], src, mids)
 
-        frames = torch.cat([x0, mids], dim=0)
-        up = to_uint8(resize(frames, (oh, ow), cfg.sr_filter))
+        with span("sr"):
+            frames = torch.cat([x0, mids], dim=0)
+            up = to_uint8(resize(frames, (oh, ow), cfg.sr_filter))
         return up, mids, hist, hcnt, sig
 
     return step

@@ -42,6 +42,7 @@ from vfisr_tpu_torch.core.color import i420_to_rgb, rgb_to_i420
 from vfisr_tpu_torch.core.frames import to_uint8
 from vfisr_tpu_torch.core.resize import resize
 from vfisr_tpu_torch.data.video_io import VideoReader, VideoWriter, probe_video
+from vfisr_tpu_torch.utils.spans import span
 
 
 def pack_i420(rgb_u8: torch.Tensor) -> torch.Tensor:
@@ -53,7 +54,8 @@ def pack_i420(rgb_u8: torch.Tensor) -> torch.Tensor:
     f, h, w, _ = rgb_u8.shape
     if h % 4 or w % 2:
         raise ValueError(f"I420 packing needs H % 4 == 0 and W % 2 == 0, got {w}x{h}")
-    return rgb_to_i420(rgb_u8).reshape(f, h * 3 // 2, w)
+    with span("pack_i420"):
+        return rgb_to_i420(rgb_u8).reshape(f, h * 3 // 2, w)
 
 
 def _start_host_copy(dev: torch.Tensor):
